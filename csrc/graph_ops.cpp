@@ -1,9 +1,9 @@
 // Native graph-preprocessing runtime for neuralgraphpde.
 //
-// The TPU compute path is JAX/XLA/Pallas; this library is the host-side
-// runtime around it (SURVEY §2.2 native-code plan): edge sorting, CSR
-// construction, Pallas tile layout, edge partitioning and spatial graph
-// building at C++ speed for multi-million-edge meshes, exposed through a
+// The compute path is JAX/XLA; this library is the host-side runtime around
+// it (SURVEY §2.2 native-code plan): edge sorting, CSR construction, edge
+// partitioning and spatial graph building at C++ speed for
+// multi-million-edge meshes, exposed through a
 // C ABI consumed via ctypes (neuralgraphpde/native.py).
 //
 // All functions are single-threaded O(E)-ish passes; callers parallelize
@@ -46,84 +46,6 @@ int ngp_csr_offsets(int64_t num_edges, int64_t num_nodes,
   offsets_out[0] = 0;
   for (int64_t i = 0; i < num_nodes; ++i)
     offsets_out[i + 1] = offsets_out[i] + counts[i];
-  return 0;
-}
-
-// Count the chunks the tiled-CSR layout needs (phase 1 of 2).
-// tn: output rows per tile; te: edges per chunk.
-int64_t ngp_tiled_csr_count(int64_t num_edges, int64_t num_nodes,
-                            const int32_t* receivers, int64_t tn, int64_t te) {
-  int64_t num_tiles = (num_nodes + tn - 1) / tn;
-  if (num_tiles < 1) num_tiles = 1;
-  std::vector<int64_t> tile_counts(num_tiles, 0);
-  for (int64_t e = 0; e < num_edges; ++e) tile_counts[receivers[e] / tn]++;
-  int64_t chunks = 0;
-  for (int64_t t = 0; t < num_tiles; ++t) {
-    int64_t c = (tile_counts[t] + te - 1) / te;
-    chunks += c > 0 ? c : 1;
-  }
-  return chunks;
-}
-
-// Build the tiled-CSR layout (phase 2). Outputs are pre-allocated by the
-// caller with C = ngp_tiled_csr_count chunks:
-//   senders_out   (C * te) int32   recv_local_out (C * te) int32
-//   wmask_out     (C * te) float   chunk_tile_out (C)      int32
-// edge_weight may be null (unit weights). Returns 0 on success.
-int ngp_tiled_csr_build(int64_t num_edges, int64_t num_nodes,
-                        const int32_t* senders, const int32_t* receivers,
-                        const float* edge_weight, int64_t tn, int64_t te,
-                        int32_t* senders_out, int32_t* recv_local_out,
-                        float* wmask_out, int32_t* chunk_tile_out) {
-  int64_t num_tiles = (num_nodes + tn - 1) / tn;
-  if (num_tiles < 1) num_tiles = 1;
-
-  std::vector<int64_t> perm(num_edges);
-  if (ngp_sort_by_receiver(num_edges, num_nodes, receivers, perm.data()))
-    return 1;
-
-  // per-tile edge ranges in sorted order
-  std::vector<int64_t> tile_counts(num_tiles, 0);
-  for (int64_t e = 0; e < num_edges; ++e) tile_counts[receivers[e] / tn]++;
-
-  // Within each receiver tile, order edges by sender: tile membership is all
-  // correctness needs, and sender-sorted chunks give the feature gather
-  // near-sequential HBM access.
-  {
-    int64_t lo = 0;
-    for (int64_t t = 0; t < num_tiles; ++t) {
-      int64_t hi = lo + tile_counts[t];
-      std::sort(perm.begin() + lo, perm.begin() + hi,
-                [&](int64_t a, int64_t b) { return senders[a] < senders[b]; });
-      lo = hi;
-    }
-  }
-
-  int64_t c = 0, pos = 0;
-  for (int64_t t = 0; t < num_tiles; ++t) {
-    int64_t remaining = tile_counts[t];
-    int64_t chunks = (remaining + te - 1) / te;
-    if (chunks == 0) chunks = 1;
-    for (int64_t k = 0; k < chunks; ++k) {
-      int64_t n = std::min<int64_t>(te, remaining);
-      for (int64_t j = 0; j < n; ++j) {
-        int64_t e = perm[pos + j];
-        senders_out[c * te + j] = senders[e];
-        recv_local_out[c * te + j] =
-            static_cast<int32_t>(receivers[e] - t * tn);
-        wmask_out[c * te + j] = edge_weight ? edge_weight[e] : 1.0f;
-      }
-      for (int64_t j = n; j < te; ++j) {
-        senders_out[c * te + j] = 0;
-        recv_local_out[c * te + j] = 0;
-        wmask_out[c * te + j] = 0.0f;
-      }
-      chunk_tile_out[c] = static_cast<int32_t>(t);
-      pos += n;
-      remaining -= n;
-      ++c;
-    }
-  }
   return 0;
 }
 

@@ -8,15 +8,12 @@ egress in this environment; the real loader is
 
 Stages (all reported with wall time + peak RSS):
   build     generate COO, receiver-sort, degree        (host, NumPy/C++)
-  tiling    grouped tiled-CSR layouts for the Pallas SpMM slab execution
   partition partition_graph(P) for the distributed path
   step8     one distributed GRAND train step on an 8-device virtual CPU mesh
-  tpu       single-chip fused-SpMM ODE-RHS edges/s at this scale (real chip)
 
-python examples/scale_products.py --stage build,tiling,partition
+python examples/scale_products.py --stage build,partition
 XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     python examples/scale_products.py --cpu --stage step8 --feat 8
-python examples/scale_products.py --stage tpu --feat 128
 """
 import os as _os, sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
@@ -58,10 +55,9 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--nodes", type=int, default=NUM_NODES)
     p.add_argument("--edges", type=int, default=NUM_EDGES)
-    p.add_argument("--stage", default="build,tiling,partition")
+    p.add_argument("--stage", default="build,partition")
     p.add_argument("--feat", type=int, default=16)
     p.add_argument("--parts", type=int, default=8)
-    p.add_argument("--slab", type=int, default=8_000_000)
     p.add_argument("--cpu", action="store_true")
     args = p.parse_args()
     stages = set(args.stage.split(","))
@@ -70,23 +66,13 @@ def main():
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from neuralgraphpde.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     t0 = time.perf_counter()
     s, r = build_graph(args.nodes, args.edges)
     log("generate", t0, edges=args.edges, nodes=args.nodes)
-
-    if "tiling" in stages:
-        from neuralgraphpde.kernels.segment_kernels import (
-            build_tiled_csr, split_tiled_csr)
-
-        t0 = time.perf_counter()
-        tcsr = build_tiled_csr(s, r, args.nodes)
-        log("tiling", t0, chunks=tcsr.senders.shape[0])
-        t0 = time.perf_counter()
-        groups = split_tiled_csr(tcsr, args.slab)
-        log("grouping", t0, groups=len(groups),
-            slab_MB=round(args.slab * args.feat * 4 / 1e6))
-        del tcsr, groups
 
     if "partition" in stages:
         from neuralgraphpde import GnnGraph
@@ -151,43 +137,6 @@ def main():
         jax.block_until_ready(loss)
         log("step8", t0, loss=float(loss))
         assert np.isfinite(float(loss))
-
-    if "tpu" in stages:
-        import jax.numpy as jnp
-
-        from neuralgraphpde import GnnGraph
-        from neuralgraphpde.kernels.segment_kernels import (
-            build_tiled_csr, set_kernel_compute_dtype, split_tiled_csr,
-            tiled_segment_spmm_grouped)
-
-        f = args.feat
-        t0 = time.perf_counter()
-        tcsr = build_tiled_csr(s, r, args.nodes)
-        groups = split_tiled_csr(tcsr, args.slab)
-        groups_rev = ()  # forward-only bench
-        log("tiling", t0, groups=len(groups))
-
-        x = jnp.asarray(np.random.default_rng(0)
-                        .normal(size=(args.nodes, f)).astype(np.float32))
-        set_kernel_compute_dtype(jnp.bfloat16)
-
-        @jax.jit
-        def rhs(x):
-            out = tiled_segment_spmm_grouped(x, groups, groups_rev)
-            return out[: args.nodes]
-
-        t0 = time.perf_counter()
-        y = jax.block_until_ready(rhs(x))
-        log("compile+1", t0)
-        iters = 5
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            y = rhs(x)
-        jax.block_until_ready(y)
-        dt = (time.perf_counter() - t0) / iters
-        set_kernel_compute_dtype(None)
-        eps = args.edges / dt
-        log("tpu", t0, edges_per_s=f"{eps/1e6:.1f}M", F=f)
 
 
 if __name__ == "__main__":

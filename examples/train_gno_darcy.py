@@ -86,5 +86,8 @@ if __name__ == "__main__":
     args = p.parse_args()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from neuralgraphpde.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main(Config(num_samples=args.samples, n=args.n, epochs=args.epochs,
                 log_path=args.log_path))

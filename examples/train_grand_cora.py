@@ -95,6 +95,9 @@ if __name__ == "__main__":
     args = p.parse_args()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from neuralgraphpde.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main(Config(epochs=args.epochs, num_nodes=args.nodes,
                 num_edges=args.nodes * 4, num_features=args.features,
                 data_path=args.data_path))

@@ -41,8 +41,8 @@ def main(cfg: Config):
     T = data.u.shape[1]
     assert T >= 3 * K, "need at least 3 bundles of snapshots"
 
-    # precompute attaches the edge tiling that lets every MPPDEConv ride the
-    # fused Pallas edge-MLP kernel (graph copies inside the model keep the
+    # precompute sorts the edges by receiver, which lets every MPPDEConv
+    # take the fused ϕ-then-sum path (graph copies inside the model keep the
     # cache alive)
     g = precompute(data.graph, dense=False)
     model = MPPDESolver(bundle=K, hidden=cfg.hidden, depth=cfg.depth,
@@ -112,5 +112,8 @@ if __name__ == "__main__":
     args = p.parse_args()
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from neuralgraphpde.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main(Config(num_sims=args.sims, nx=args.nx, epochs=args.epochs,
                 bundle=args.bundle, log_path=args.log_path))

@@ -90,4 +90,7 @@ if __name__ == "__main__":
         _os.environ["XLA_FLAGS"] = (_os.environ.get("XLA_FLAGS", "") +
                                     " --xla_force_host_platform_device_count=8")
         jax.config.update("jax_platforms", "cpu")
+    from neuralgraphpde.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main(args.devices, args.base_nodes, args.degree, mesh_graph=args.mesh)

@@ -1,7 +1,7 @@
-"""neuralgraphpde — a TPU-native neural graph PDE framework.
+"""neuralgraphpde — a neural graph PDE framework in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capability surface of
-NeuralGraphPDE.jl (reference mounted at /root/reference): graph containers,
+A from-scratch JAX/XLA rebuild of the capability surface of
+NeuralGraphPDE.jl: graph containers,
 message passing, the six GNN-PDE convolution layers evaluated as continuous
 ODE right-hand sides, ODE solvers with checkpointed/backsolve adjoints, and
 multi-device edge-partitioned execution over jax.sharding meshes.

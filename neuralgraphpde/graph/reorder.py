@@ -18,7 +18,8 @@ endpoints, permuting ndata rows); external per-node arrays travel with
 ``permute_nodes`` / ``unpermute_nodes``.
 
 No reference equivalent (the reference never reorders; its scatter kernels
-are order-insensitive). This exists purely for the TPU dense-block path.
+are order-insensitive). A near-diagonal ordering keeps the gathers of the
+segment sum local.
 """
 from __future__ import annotations
 

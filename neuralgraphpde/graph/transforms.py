@@ -2,8 +2,8 @@
 
 Equivalents of the reference's reexported GraphNeuralNetworks.jl utilities
 consumed at reference src/layers.jl:211 (``add_self_loops``) and :224
-(``degree``), plus CSR metadata for the Pallas kernels (no reference
-equivalent — the reference's scatter kernels are NNlibCUDA's).
+(``degree``), plus CSR metadata (no reference equivalent — the
+reference's scatter kernels are NNlibCUDA's).
 """
 from __future__ import annotations
 
@@ -75,7 +75,7 @@ def sort_by_receiver(g: GnnGraph, return_perm: bool = False):
     """Canonicalize edge order to non-decreasing receiver (CSR-ready).
 
     Edge features are permuted consistently. Segment reductions over sorted
-    receivers let XLA/Pallas use the fast sorted path. With
+    receivers let XLA use the fast sorted path. With
     ``return_perm=True`` also returns the applied permutation (new edge slot
     ``k`` holds old edge ``perm[k]``; identity when already sorted).
     """
@@ -141,8 +141,8 @@ def to_dense_adjacency(
     """Dense adjacency ``A[r, s] = sum of weights of edges s -> r``.
 
     ``A @ X`` then equals receiver-aggregated sum of sender features — the
-    MXU-friendly SpMM path for small/medium graphs (cf. PAPERS.md "Fast
-    Training of Sparse GNNs on Dense Hardware").
+    dense SpMM path for small graphs (cf. PAPERS.md "Fast Training of Sparse
+    GNNs on Dense Hardware").
     """
     n = g.num_nodes
     w = (jnp.ones((g.num_edges,), dtype) if edge_weight is None

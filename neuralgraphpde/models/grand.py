@@ -33,7 +33,7 @@ def grand_model(
 ) -> Chain:
     """``precomputed_self_loops=True`` assumes the graph bound at runtime
     already contains self-loops (add them before ``ops.precompute`` so the
-    SpMM cache — dense adjacency / tiled CSR / degrees — stays valid inside
+    SpMM cache — dense adjacency / DIA stencil / degrees — stays valid inside
     the ODE hot loop)."""
     asl = not precomputed_self_loops
     rhs = Chain(tuple(

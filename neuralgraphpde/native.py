@@ -47,13 +47,6 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.ngp_csr_offsets.restype = ctypes.c_int
     lib.ngp_csr_offsets.argtypes = [ctypes.c_int64, ctypes.c_int64, _i32p,
                                     _i64p]
-    lib.ngp_tiled_csr_count.restype = ctypes.c_int64
-    lib.ngp_tiled_csr_count.argtypes = [
-        ctypes.c_int64, ctypes.c_int64, _i32p, ctypes.c_int64, ctypes.c_int64]
-    lib.ngp_tiled_csr_build.restype = ctypes.c_int
-    lib.ngp_tiled_csr_build.argtypes = [
-        ctypes.c_int64, ctypes.c_int64, _i32p, _i32p, ctypes.c_void_p,
-        ctypes.c_int64, ctypes.c_int64, _i32p, _i32p, _f32p, _i32p]
     lib.ngp_greedy_partition.restype = ctypes.c_int
     lib.ngp_greedy_partition.argtypes = [
         ctypes.c_int64, ctypes.c_int64, _i32p, ctypes.c_int64, _i32p]
@@ -97,40 +90,6 @@ def csr_offsets(sorted_receivers: np.ndarray, num_nodes: int) -> np.ndarray:
     if rc != 0:
         raise ValueError("receiver index out of range")
     return out
-
-
-def tiled_csr(
-    senders: np.ndarray,
-    receivers: np.ndarray,
-    num_nodes: int,
-    *,
-    edge_weight: Optional[np.ndarray] = None,
-    tn: int,
-    te: int,
-) -> Optional[Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]]:
-    """Native tiled-CSR build; returns None when the library is missing (the
-    caller falls back to the NumPy implementation in kernels/)."""
-    lib = _load()
-    if lib is None:
-        return None
-    senders = np.ascontiguousarray(senders, np.int32)
-    receivers = np.ascontiguousarray(receivers, np.int32)
-    E = senders.shape[0]
-    C = int(lib.ngp_tiled_csr_count(E, num_nodes, receivers, tn, te))
-    sk = np.empty((C, te), np.int32)
-    rl = np.empty((C, te), np.int32)
-    wm = np.empty((C, te), np.float32)
-    ct = np.empty((C,), np.int32)
-    if edge_weight is not None:
-        ew = np.ascontiguousarray(edge_weight, np.float32)
-        ew_ptr = ew.ctypes.data_as(ctypes.c_void_p)
-    else:
-        ew_ptr = None
-    rc = lib.ngp_tiled_csr_build(E, num_nodes, senders, receivers, ew_ptr,
-                                 tn, te, sk, rl, wm, ct)
-    if rc != 0:
-        raise ValueError("tiled_csr build failed")
-    return sk, rl, wm, ct
 
 
 def greedy_partition(receivers: np.ndarray, num_nodes: int,

@@ -3,8 +3,8 @@
 Equivalents of the Lux building blocks the reference composes with
 (``Lux.Dense``/``Chain``, reference src/layers.jl:490, tutorials' MLPs,
 docs/src/tutorials/VMH.md:75-80). Row-major convention: inputs are
-``(batch/nodes/edges, features)``; kernels are stored ``(in, out)`` so the
-forward is a single ``x @ W`` MXU matmul.
+``(batch/nodes/edges, features)``; weights are stored ``(in, out)`` so the
+forward is a single ``x @ W`` matmul.
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
-"""The GNN layer zoo: the reference's six convolution layers, TPU-native.
+"""The GNN layer zoo: the reference's six convolution layers.
 
 Each layer reproduces the math and feature-concat ordering of its reference
 counterpart in src/layers.jl (citations per class) with row-major
 ``(entities, features)`` tensors: all edge work is one batched MLP over the
-edge dimension (MXU GEMMs of size ``num_edges × hidden``) plus a segment
+edge dimension (GEMMs of size ``num_edges × hidden``) plus a segment
 reduction — the two hot loops SURVEY §3.2 identifies.
 """
 from __future__ import annotations
@@ -38,16 +38,6 @@ def _cat(arrays, width_hint=None):
     return jnp.concatenate(arrays, axis=-1)
 
 
-def _phi_sub(layer, x, phi_ps, phi_st, name, n_layers):
-    """Run one prefix layer of a fused ϕ with Chain-style nested params."""
-    ps_i = phi_ps[name]
-    st_i = phi_st.get(name, {}) if isinstance(phi_st, dict) else {}
-    y, st_i = layer(x, ps_i, st_i)
-    new_st = dict(phi_st) if isinstance(phi_st, dict) else {}
-    new_st[name] = st_i
-    return y, new_st
-
-
 def _values_cat(d, like, count):
     """Concat dict values in iteration order; empty dict -> (count, 0) array
     (the reference's ``reduce(vcat, ...; init=similar(x, 0, n))`` trick,
@@ -76,51 +66,30 @@ def _split_dense_chain(phi):
     return None
 
 
-def _node_degree(g, dtype):
-    if "in_degree" in g.cache:
-        return g.cache["in_degree"].astype(dtype)
+def _edge_count(g, dtype):
+    """Edges per receiver, unweighted — what ``segment_mean`` divides by.
+    Not ``cache['in_degree']``: ``precompute(edge_weight=w)`` stores the
+    weighted degree there."""
+    offsets = g.cache.get("csr_offsets")
+    if offsets is not None:
+        return jnp.diff(offsets).astype(dtype)
     return _degree(g, dtype, direction="in")
 
 
-def split_phi_last_linear(phi):
-    """``(prefix_layers, last_dense)`` when ϕ is a Dense stack ending in a
-    linear Dense (the GNO kernel-network shape), else None. Shared by
-    ``GNOConv`` and ``parallel.layers.ShardedGNOConv``."""
-    from .basic import MLP, Chain
-
-    if isinstance(phi, MLP):
-        phi = phi._chain
-    if isinstance(phi, Chain):
-        layers = phi.layers
-    elif isinstance(phi, Dense):
-        layers = (phi,)
-    else:
-        return None
-    last = layers[-1]
-    if not isinstance(last, Dense) or last.activation not in (None,
-                                                              "identity"):
-        return None
-    return layers[:-1], last
-
-
 def fused_phi_plan(phi, phi_ps, aggr):
-    """Staging plan for the fused edge-MLP kernel: ``(acts, ws, bs, post)``
-    when ϕ is a Dense stack with static (kernel-representable) activations
-    and ``aggr`` reduces by sum/mean — else None. When ϕ ends in a linear
-    Dense, that layer is split off as ``post`` and applied after the reduce
-    (``Σ(h@W+b) = (Σh)@W + deg·b`` — E/N× fewer FLOPs on it). Shared by the
-    single-device path (``_try_fused_phi``) and the per-partition path
-    inside shard_map (``parallel.halo.sharded_propagate``)."""
+    """Staging plan for the fused ϕ-then-sum path: ``(acts, ws, bs, post)``
+    when ϕ is a Dense stack and ``aggr`` reduces by sum/mean — else None.
+    When ϕ ends in a linear Dense, that layer is split off as ``post`` and
+    applied after the reduce (``Σ(h@W+b) = (Σh)@W + deg·b`` — E/N× fewer
+    FLOPs on it). Shared by the single-device path (``_phi_aggregate``) and
+    the per-partition path inside shard_map
+    (``parallel.halo.sharded_propagate``)."""
     if canonical_reduction(aggr) not in ("sum", "mean"):
         return None
     split = _split_dense_chain(phi)
     if split is None:
         return None
     layers, named = split
-    from ..kernels.fused_mlp_kernels import supported_activation
-
-    if not all(supported_activation(l.activation) for l in layers):
-        return None
     ps_list = ([phi_ps[f"layer_{i + 1}"] for i in range(len(layers))]
                if named else [phi_ps])
 
@@ -157,37 +126,32 @@ def fused_phi_post(reduced, post, deg, red):
     return m
 
 
-def _try_fused_phi(phi, feats, phi_ps, g, aggr):
-    """Fully-fused ``aggr_{e→i} ϕ(feats_e)`` through the Pallas edge-MLP
-    kernel (kernels/fused_mlp_kernels.py). Engages when the graph carries a
-    precomputed edge tiling, ϕ is a Dense stack with static activations, and
-    ``aggr`` is sum/mean — else returns None and the caller takes the exact
-    XLA path."""
-    if "tcsr_edges" not in g.cache:
-        return None
-    from ..ops.spmm import _pallas_available, get_spmm_mode
-
-    mode = get_spmm_mode()
-    if not (mode == "pallas" or (mode == "auto" and _pallas_available())):
-        return None
-    plan = fused_phi_plan(phi, phi_ps, aggr)
-    if plan is None:
-        return None
-    acts, ws, bs, post = plan
-    from ..kernels.fused_mlp_kernels import fused_mlp_aggregate
-
-    reduced = fused_mlp_aggregate(acts, feats, ws, bs,
-                                  g.cache["tcsr_edges"])[: g.num_nodes]
-    deg = _node_degree(g, reduced.dtype)
-    return fused_phi_post(reduced, post, deg, canonical_reduction(aggr))
+def edge_mlp_sum(acts, feats, ws, bs, receivers, num_nodes, weights=None):
+    """``Σ_{e→i} w_e · ϕ(feats_e)`` over receiver-sorted edges: ϕ's Dense
+    layers over all edges, then a sorted segment sum. The layers compute
+    exactly what ``nn.basic.Dense`` computes."""
+    h = feats
+    for w, b, act in zip(ws, bs, acts):
+        h = resolve_activation(act)(
+            jnp.dot(h, w, preferred_element_type=h.dtype) + b)
+    if weights is not None:
+        h = h * weights[:, None].astype(h.dtype)
+    return jax.ops.segment_sum(h, receivers, num_segments=num_nodes,
+                               indices_are_sorted=True)
 
 
 def _phi_aggregate(phi, feats, phi_ps, phi_st, g, aggr):
-    """``aggr_{e→i} ϕ(feats_e)`` — fused Pallas path when available, else the
-    exact ϕ-then-segment-reduce. Returns ``(m, st_phi)``."""
-    m = _try_fused_phi(phi, feats, phi_ps, g, aggr)
-    if m is not None:
-        return m, phi_st
+    """``aggr_{e→i} ϕ(feats_e)``. A Dense-stack ϕ with sum/mean aggregation
+    on a receiver-sorted graph takes the fused path (penultimate-width
+    reduce, ``fused_phi_plan``); anything else is ϕ-then-segment-reduce.
+    Returns ``(m, st_phi)``."""
+    plan = fused_phi_plan(phi, phi_ps, aggr)
+    if plan is not None and g.receivers_sorted:
+        acts, ws, bs, post = plan
+        reduced = edge_mlp_sum(acts, feats, ws, bs, g.receivers, g.num_nodes)
+        deg = _edge_count(g, reduced.dtype)
+        return fused_phi_post(reduced, post, deg,
+                              canonical_reduction(aggr)), phi_st
     from ..ops.message_passing import aggregate_neighbors
 
     msgs, phi_st = phi(feats, phi_ps, phi_st)
@@ -242,18 +206,6 @@ class GCNConv(AbstractGNNLayer):
     The aggregation is the SpMM fast path; attach acceleration structure with
     ``ops.precompute`` (dense adjacency / CSR) to the *self-looped* graph to
     keep the hot loop off the scatter path.
-
-    Fully-fused RHS gate: on graphs carrying normalized banded/DIA structure
-    (``precompute(gcn_fused=True)``), the whole RHS (normalize → aggregate →
-    matmul → bias → activation) runs as ONE Pallas pass when ALL of:
-    no runtime/stored edge weights, 2-D input, the activation is a
-    kernel-representable STATIC name (``kernels.banded_kernels.
-    epilogue_supported`` — a Python callable falls back), the Pallas backend
-    is available, and the kernel-side feature width — ``out_chs`` when
-    ``out_chs < in_chs`` (pre-multiply), else ``in_chs`` — is ≤ 512 (VMEM
-    window budget of the stencil/banded kernels). Any unmet condition
-    silently takes the numerically-identical exact path
-    (tests/test_banded_rhs.py pins the F=512/513 boundary).
     """
 
     in_chs: int
@@ -297,7 +249,7 @@ class GCNConv(AbstractGNNLayer):
             # A graph prepared with ``ops.precompute(g, add_self_loops=True)``
             # is already self-looped (cache flag) and keeps its fast path;
             # otherwise the graph is rebuilt here, discarding any cache.
-            if any(k in g.cache for k in ("adj", "tcsr", "banded", "bsr")):
+            if any(g.cache.get(k) is not None for k in ("adj", "dia")):
                 import warnings
 
                 warnings.warn(
@@ -327,54 +279,6 @@ class GCNConv(AbstractGNNLayer):
             else:
                 edge_weight = jnp.ones(
                     (g.num_edges,), edge_weight.dtype).at[pos].set(edge_weight)
-
-        if (edge_weight is None and not self.use_edge_weight
-                and ("banded_norm" in g.cache or "dia_norm" in g.cache
-                     or "pbanded_norm" in g.cache)
-                and x.ndim == 2):
-            # fully-fused RHS: degree normalization lives in the stored
-            # matrix values (precompute(gcn_fused=True));
-            # matmul+bias+activation run in the kernel epilogue — one
-            # streaming pass for the whole RHS (DIA stencil kernel on
-            # structured meshes, banded-block otherwise)
-            from ..kernels.banded_kernels import (banded_gcn_rhs,
-                                                  epilogue_supported)
-            from ..ops.spmm import _pallas_available, get_spmm_mode
-
-            mode = get_spmm_mode()
-            # width the KERNEL sees: with out<in the pre-multiplied x@w
-            # (out_chs wide) streams through the kernel, so a 1024→256
-            # layer still fuses; ≤512 is the VMEM x-window budget
-            kernel_width = (self.out_chs if self.out_chs < self.in_chs
-                            else x.shape[1])
-            if (epilogue_supported(self.activation)
-                    and kernel_width <= 512
-                    and (mode in ("pallas", "bsr")
-                         or (mode == "auto" and _pallas_available()))):
-                if "dia_norm" in g.cache:
-                    from ..kernels.dia_kernels import dia_gcn_rhs as rhs_fn
-
-                    nrm = g.cache["dia_norm"]
-                    nrm_rev = g.cache.get("dia_norm_rev")
-                elif "pbanded_norm" in g.cache:
-                    from ..kernels.banded_kernels import (
-                        pbanded_gcn_rhs as rhs_fn,
-                    )
-
-                    nrm = g.cache["pbanded_norm"]
-                    nrm_rev = g.cache.get("pbanded_norm_rev")
-                else:
-                    rhs_fn = banded_gcn_rhs
-                    nrm = g.cache["banded_norm"]
-                    nrm_rev = g.cache.get("banded_norm_rev")
-                w = ps["weight"]
-                b = ps.get("bias") if self.use_bias else None
-                if self.out_chs < self.in_chs:
-                    xw = jnp.dot(x, w, preferred_element_type=x.dtype)
-                    y = rhs_fn(self.activation, xw, None, b, nrm, nrm_rev)
-                else:
-                    y = rhs_fn(self.activation, x, w, b, nrm, nrm_rev)
-                return y.astype(x.dtype), st
 
         if self.out_chs < self.in_chs:
             x = jnp.dot(x, ps["weight"], preferred_element_type=x.dtype)
@@ -533,13 +437,6 @@ class GNOConv(AbstractGNNContainerLayer):
     use_bias: bool = True
     init_weight: Callable = glorot_uniform
     init_bias: Callable = zeros_init
-    # Use the fused Pallas kernel (kernels/gno_kernels.py) when the graph
-    # carries a precomputed edge tiling (ops.precompute(g, pallas=True)) and
-    # the backend runs Pallas: ϕ's last linear layer, the per-edge matvec,
-    # and the receiver segment-sum run in one kernel — the E×(in·out) kernel
-    # tensor never touches HBM. Requires ϕ to be an MLP/Chain ending in a
-    # plain Dense; silently falls back otherwise.
-    fused: bool = True
     layer_names: Tuple[str, ...] = ("linear", "phi")
 
     def __post_init__(self):
@@ -552,87 +449,29 @@ class GNOConv(AbstractGNNContainerLayer):
     def _children(self):
         return {"linear": self.linear, "phi": self.phi}
 
-    def _phi_split(self):
-        """(prefix_layers, last_dense) when ϕ is fusable, else None."""
-        return split_phi_last_linear(self.phi)
-
-    def _fused_forward(self, x, ps, st, g):
-        from ..kernels.gno_kernels import fused_gno_aggregate, pack_last_layer
-        from ..ops.message_passing import apply_edges
-
-        split = self._phi_split()
-        if split is None:
-            return None
-        prefix, _ = split
-        E = g.num_edges
-        s = g.ndata
-        phi_ps = ps["phi"]
-        st_cell = {"phi": st["phi"]}
-
-        def edge_feats(xi, xj, e_feat):
-            si = _values_cat({k: xi[k] for k in s}, x, E)
-            sj = _values_cat({k: xj[k] for k in s}, x, E)
-            e_cat = _values_cat(e_feat or {}, x, E)
-            return jnp.concatenate([si, sj, e_cat], axis=-1)
-
-        feats = apply_edges(edge_feats, g, xi=s, xj=s, e=g.edata)
-        n_layers = len(prefix) + 1
-        ph = feats
-        for i, layer in enumerate(prefix):
-            name = f"layer_{i + 1}"
-            ph, st_cell["phi"] = _phi_sub(layer, ph, phi_ps, st_cell["phi"],
-                                          name, n_layers)
-        last_name = f"layer_{n_layers}"
-        last_ps = phi_ps[last_name] if n_layers > 1 else phi_ps
-        wl, bl = pack_last_layer(last_ps["weight"], last_ps.get("bias"),
-                                 self.in_chs, self.out_chs)
-        m = fused_gno_aggregate(ph, x, wl, bl, g.cache["tcsr_edges"],
-                                g.senders)[: g.num_nodes]
-        red = canonical_reduction(self.aggr)
-        if red == "mean":
-            if "in_degree" in g.cache:
-                deg = g.cache["in_degree"].astype(m.dtype)
-            else:
-                deg = _degree(g, m.dtype, direction="in")
-            m = m / jnp.maximum(deg, 1.0)[:, None]
-        elif red != "sum":
-            return None
-        return m, st_cell["phi"]
-
     def __call__(self, x, ps, st):
         g: GnnGraph = st["graph"]
         E = g.num_edges
         s = g.ndata
 
-        fused_out = None
-        if self.fused and "tcsr_edges" in g.cache:
-            from ..ops.spmm import _pallas_available, get_spmm_mode
+        st_cell = {"phi": st["phi"]}
 
-            mode = get_spmm_mode()
-            if (mode == "pallas"
-                    or (mode == "auto" and _pallas_available())):
-                fused_out = self._fused_forward(x, ps, st, g)
-        if fused_out is not None:
-            m, st_phi = fused_out
-        else:
-            st_cell = {"phi": st["phi"]}
+        def message(xi, xj, e_feat):
+            si = _values_cat({k: xi[k] for k in s}, x, E)
+            sj = _values_cat({k: xj[k] for k in s}, x, E)
+            e_cat = _values_cat(e_feat or {}, x, E)
+            w, st_cell["phi"] = self.phi(
+                jnp.concatenate([si, sj, e_cat], axis=-1), ps["phi"],
+                st_cell["phi"])
+            hj = xj["_h"]
+            # Row-major layout matching the reference's column-major
+            # reshape(W, out, in, E): w[e, i*out + o] == W_julia[o, i, e].
+            w = w.reshape(E, self.in_chs, self.out_chs)
+            return jnp.einsum("eio,ei->eo", w, hj)
 
-            def message(xi, xj, e_feat):
-                si = _values_cat({k: xi[k] for k in s}, x, E)
-                sj = _values_cat({k: xj[k] for k in s}, x, E)
-                e_cat = _values_cat(e_feat or {}, x, E)
-                w, st_cell["phi"] = self.phi(
-                    jnp.concatenate([si, sj, e_cat], axis=-1), ps["phi"],
-                    st_cell["phi"])
-                hj = xj["_h"]
-                # Row-major layout matching the reference's column-major
-                # reshape(W, out, in, E): w[e, i*out + o] == W_julia[o, i, e].
-                w = w.reshape(E, self.in_chs, self.out_chs)
-                return jnp.einsum("eio,ei->eo", w, hj)
-
-            xs = {"_h": x, **s}
-            m = propagate(message, g, self.aggr, xi=xs, xj=xs, e=g.edata)
-            st_phi = st_cell["phi"]
+        xs = {"_h": x, **s}
+        m = propagate(message, g, self.aggr, xi=xs, xj=xs, e=g.edata)
+        st_phi = st_cell["phi"]
 
         y = jnp.dot(x, ps["linear"]["weight"], preferred_element_type=x.dtype) + m
         if self.use_bias:
@@ -661,7 +500,7 @@ class SpectralConv(AbstractGNNLayer):
         diff = x[g.receivers] - x[g.senders]
         # The message coefficient depends only on the (static) stencil, so it
         # is precomputed here and the forward rides the e_mul_xj SpMM fast
-        # path — no per-solver-stage transcendentals (TPU-first deviation
+        # path — no per-solver-stage transcendentals (a deviation
         # from the reference's in-message trig, src/layers.jl:654).
         coef = (jnp.cos(diff * self.n / 2)
                 * (jnp.cos(diff / 2) / jnp.sin(diff / 2)) / 2)

@@ -1,13 +1,12 @@
-"""Mixed-precision policy as a layer transform (TPU bf16 recipe).
+"""Mixed-precision policy as a layer transform (bf16 compute).
 
-The TPU-native training recipe is f32 *master* parameters with bf16
-*compute*: the MXU natively multiplies bf16 operands (f32 inputs are
-truncated anyway unless HIGHEST precision is requested), and bf16 halves
-every HBM byte the activations move. JAX's idiom for this is a function
-transform, not a module rewrite — so ``Precision`` wraps any explicit layer
-(``y, st = layer(x, ps, st)``) and, at call time, casts the floating-point
-leaves of ``x`` and ``ps`` to ``compute_dtype``, runs the wrapped layer
-unmodified, and casts the output back to ``output_dtype``.
+The recipe is f32 *master* parameters with bf16 *compute*: the GPU's
+tensor cores multiply bf16 operands at twice the TF32 rate, and bf16 halves
+every byte the activations move through device memory. JAX's idiom for this
+is a function transform, not a module rewrite — so ``Precision`` wraps any
+explicit layer (``y, st = layer(x, ps, st)``) and, at call time, casts the
+floating-point leaves of ``x`` and ``ps`` to ``compute_dtype``, runs the
+wrapped layer unmodified, and casts the output back to ``output_dtype``.
 
 Because the cast is ``convert_element_type`` (whose VJP casts the cotangent
 back), gradients arrive in the *master* dtype — the standard mixed-precision
@@ -15,25 +14,15 @@ loss-scaling-free bf16 setup (bf16 keeps f32's exponent range, so no scaling
 is needed, unlike fp16).
 
 The reference has no dtype policy (Julia/Lux trains f32 throughout); this is
-a TPU-first addition. Composes with the graph-in-state machinery:
-``update_graph`` recurses into the nested state, and all Pallas kernel paths
-accept bf16 features (they accumulate in f32 in-kernel).
+an addition. Composes with the graph-in-state machinery: ``update_graph``
+recurses into the nested state.
 
-**When it pays (r4/r5 measurement, VERDICT r4 weak #1).** Until r5 the
-XLA ϕ-backends ran f32 dots at the TPU's DEFAULT precision — which
-truncates f32 operands to bf16 and runs ONE MXU pass — so on the VMH
-training path this policy's matmul advantage was exactly zero, and its
-residual effect was the per-call cast traffic (params+features→bf16 every
-step): a measured −13% (BENCH_r04 vmh/xla_grad_bf16 15.5M vs xla_grad
-17.9M edges/s). At VMH widths (60/40) the halved activation bytes the
-policy is designed to buy are noise — the path is small-kernel
-overhead-bound, not bandwidth-bound. Since r5 the f32 backends request
-HIGHEST precision (multi-pass bf16 emulation of true f32, matching the Pallas
-kernels — see kernels/fused_mlp_kernels._xla_dot_precision), so the policy
-choice is now meaningful and monotone: **f32 = full-precision training;
-``bf16(model)`` = the single-pass MXU speed path**. Expect the policy to
-win on matmul-dominated widths (≥128) and to be ~neutral-to-negative on
-narrow overhead-bound models like the VMH tutorial config.
+Precision of float32 itself: on this GPU, default-precision f32 products run
+in TF32 (10-bit mantissa). A true-f32 reference therefore runs under
+``jax.default_matmul_precision("highest")``. Whether ``bf16(model)`` pays
+on a given model has not been measured on the GPU yet; on narrow widths
+(the VMH tutorial's 60/40) the halved bytes are small next to the per-call
+casts.
 
 Usage::
 
@@ -79,5 +68,5 @@ class Precision(ContainerLayer):
 
 
 def bf16(layer: Layer) -> Precision:
-    """f32 master params, bf16 compute, f32 outputs — the TPU default."""
+    """f32 master params, bf16 compute, f32 outputs."""
     return Precision(layer)

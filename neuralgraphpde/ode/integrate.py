@@ -4,8 +4,8 @@ Rebuild of the solver layer the reference gets from DifferentialEquations.jl
 (Tsit5 + InterpolatingAdjoint/ZygoteVJP, reference
 docs/src/tutorials/graph_node.md:53-66). Here the whole solve — control flow
 included — is one XLA program (``lax.scan`` over save intervals with a
-``lax.while_loop`` adaptive stepper inside), so the fused aggregation kernels
-run inside every solver stage without host round-trips.
+``lax.while_loop`` adaptive stepper inside), so the aggregation runs inside
+every solver stage without host round-trips.
 
 Adjoints:
 - ``odeint_grid``      — fixed-step ``lax.scan``; reverse-mode differentiates

@@ -29,7 +29,7 @@ from .message_passing import (
 )
 from .spmm import spmm, precompute, set_spmm_mode, get_spmm_mode
 from .bsr import (BsrMatrix, BandedMatrix, build_bsr, bsr_spmm,
-                  build_banded, banded_spmm, precompute_bsr)
+                  build_banded, banded_spmm)
 from .dia import (DiaMatrix, build_dia, build_dia_hybrid,
                   dia_remainder_spmm, dia_spmm, transpose_dia)
 
@@ -41,7 +41,7 @@ __all__ = [
     "reduce_edges", "broadcast_nodes", "broadcast_edges", "softmax_nodes",
     "softmax_edges", "softmax_edge_neighbors", "spmm", "precompute",
     "set_spmm_mode", "get_spmm_mode", "BsrMatrix", "BandedMatrix",
-    "build_bsr", "bsr_spmm", "build_banded", "banded_spmm", "precompute_bsr",
+    "build_bsr", "bsr_spmm", "build_banded", "banded_spmm",
     "DiaMatrix", "build_dia", "build_dia_hybrid", "dia_remainder_spmm",
     "dia_spmm", "transpose_dia",
 ]

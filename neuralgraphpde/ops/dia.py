@@ -1,27 +1,25 @@
 """Scalar-diagonal (DIA / stencil) sparse storage — the structured-mesh
-speed-of-light path.
+path.
 
 A regular grid mesh's adjacency has all nonzeros on a handful of SCALAR
 diagonals: the 512×512 8-neighborhood grid (bench mesh; the MP-PDE / GNO
 configs' meshes) has exactly 9 offsets {0, ±1, ±(nx−1), ±nx, ±(nx+1)}. The
 block-banded format (``ops.bsr.BandedMatrix``) must store every block the
 diagonals touch — ~200× zero inflation on that mesh (939 MB of bands) — while
-DIA stores one value per EDGE: ``values[k, i] = A[i, i + offsets[k]]``,
+DIA stores one value per EDGE: ``values[i, k] = A[i, i + offsets[k]]``,
 9·N floats (4.7 MB bf16).
 
 The SpMM becomes a stencil: ``out[i] = Σ_k values[k, i] · x[i + offsets[k]]``
-— shifted reads of ``x`` weighted per-node, no gather, no MXU needed (pure
-VPU FMA). Kernel (kernels/dia_kernels.py) traffic per pass: ``x`` ~3×, the
-tiny value diagonals, and one output write — an order of magnitude below the
-banded kernel on the same mesh.
+— shifted reads of ``x`` weighted per-node, no gather: XLA fuses the K
+shifted multiply-adds into one loop. Traffic per pass: ``x``, the small
+value diagonals, and one output write.
 
 Transpose for the backward pass: ``Aᵀ`` has offsets ``−d`` with values
-shifted by ``d`` (``valuesᵀ[k, i] = values[k', i + d]``), built host-side at
-precompute time like the banded reverse.
+shifted by ``d`` (``valuesᵀ[i, k] = values[i + d, k']``).
 
 Build is gated: graphs whose edges span more than ``max_diags`` distinct
 offsets (unstructured: random, Delaunay even after RCM) return None and keep
-the banded/tiled-CSR paths.
+the gather path.
 """
 from __future__ import annotations
 
@@ -36,19 +34,11 @@ import numpy as np
 @jax.tree_util.register_pytree_node_class
 @dataclasses.dataclass(frozen=True, eq=False)
 class DiaMatrix:
-    """values[k, i] = A[i, i + offsets[k]] (0 where absent / out of range).
+    """values[i, k] = A[i, i + offsets[k]] (0 where absent / out of range)."""
 
-    ``num_nodes`` rows, padded to ``padded_nodes`` (a tile multiple for the
-    Pallas kernel; value columns beyond num_nodes are zero)."""
-
-    values: jax.Array  # (padded_nodes, K) f32/bf16 — row-major: the kernel
-    # reads a (tile, K) value block per output tile, lane dim = K
+    values: jax.Array  # (num_nodes, K) f32/bf16
     offsets: tuple  # static scalar offsets, ascending
     num_nodes: int
-
-    @property
-    def padded_nodes(self) -> int:
-        return self.values.shape[0]
 
     @property
     def bandwidth(self) -> int:
@@ -65,9 +55,8 @@ class DiaMatrix:
 @dataclasses.dataclass(frozen=True)
 class DiaPlan:
     """Decision summary from one ``sender − receiver`` offsets pass: which
-    DIA representation (full / hybrid / none) ``precompute_bsr`` should
-    build — so at most ONE O(E) value-fill + padded array is constructed
-    (advisor r3: the old flow always built both)."""
+    DIA representation (full / hybrid / none) ``precompute`` should build,
+    so at most one O(E) value fill is made."""
 
     full_ok: bool  # few enough distinct offsets for full DIA
     full_bw: int  # bandwidth of full DIA (max |offset|)
@@ -119,7 +108,6 @@ def build_dia(
     *,
     edge_weight: Optional[np.ndarray] = None,
     max_diags: int = 32,
-    tile: int = 512,
     dtype=np.float32,
 ) -> Optional[DiaMatrix]:
     """Host-side DIA build; None when the graph isn't diagonal-structured
@@ -133,8 +121,7 @@ def build_dia(
     offsets = np.unique(d)
     if len(offsets) > max_diags:
         return None
-    n_pad = -(-num_nodes // tile) * tile
-    vals = np.zeros((n_pad, len(offsets)), np.float32)
+    vals = np.zeros((num_nodes, len(offsets)), np.float32)
     k = np.searchsorted(offsets, d)
     # duplicate edges accumulate (multigraph semantics match segment_sum)
     np.add.at(vals, (receivers, k), w)
@@ -150,7 +137,6 @@ def build_dia_hybrid(
     *,
     edge_weight: Optional[np.ndarray] = None,
     max_diags: int = 32,
-    tile: int = 512,
     dtype=np.float32,
     bw_limit: int = 8192,
     min_fill: float = 0.25,
@@ -159,8 +145,8 @@ def build_dia_hybrid(
     """Almost-DIA graphs: stencil bulk + tiny COO remainder.
 
     Keeps the populous, kernel-reachable diagonals (fill ≥ ``min_fill``·N
-    and |offset| ≤ ``bw_limit`` — the Pallas stencil kernel streams an
-    x-window of ±bandwidth rows, so huge offsets can't ride it) and spills
+    and |offset| ≤ ``bw_limit`` — far diagonals are mostly empty and would
+    pad the stencil with zeros) and spills
     every other edge to a receiver-sorted COO remainder. The canonical case
     is a periodic grid (MP-PDE's Burgers domain): the interior stencil is
     pure DIA, the wrap edges (~1/nx of E) land on ±(n−ny)-ish offsets and
@@ -194,8 +180,7 @@ def build_dia_hybrid(
     if n_rem > rem_frac * E:
         return None
     dm = build_dia(senders[keep_edge], receivers[keep_edge], num_nodes,
-                   edge_weight=w[keep_edge], max_diags=max_diags, tile=tile,
-                   dtype=dtype)
+                   edge_weight=w[keep_edge], max_diags=max_diags, dtype=dtype)
     if dm is None:
         return None
     rs, rr, rw = senders[rem], receivers[rem], w[rem]
@@ -219,7 +204,7 @@ def transpose_dia(dm: DiaMatrix) -> DiaMatrix:
     it works both at build time and traced inside a VJP when no prebuilt
     reverse exists."""
     K = len(dm.offsets)
-    n_pad = dm.padded_nodes
+    n = dm.num_nodes
     offs = [-d for d in dm.offsets]
     order = sorted(range(K), key=lambda i: offs[i])
     cols = []
@@ -229,7 +214,7 @@ def transpose_dia(dm: DiaMatrix) -> DiaMatrix:
         src = dm.values[:, i]
         if d > 0:
             col = jnp.concatenate(
-                [jnp.zeros((d,), src.dtype), src[: n_pad - d]])
+                [jnp.zeros((d,), src.dtype), src[: n - d]])
         elif d < 0:
             col = jnp.concatenate([src[-d:], jnp.zeros((-d,), src.dtype)])
         else:
@@ -241,13 +226,12 @@ def transpose_dia(dm: DiaMatrix) -> DiaMatrix:
 
 
 def dia_spmm(dm: DiaMatrix, x: jax.Array) -> jax.Array:
-    """XLA stencil SpMM: ``out[i] = Σ_k values[k,i] · x[i+offsets[k]]``."""
+    """XLA stencil SpMM: ``out[i] = Σ_k values[i,k] · x[i+offsets[k]]``."""
     n, F = dm.num_nodes, x.shape[1]
-    n_pad = dm.padded_nodes
     W = dm.bandwidth
-    xp = jnp.pad(x.astype(jnp.float32), ((W, W + n_pad - n), (0, 0)))
-    out = jnp.zeros((n_pad, F), jnp.float32)
+    xp = jnp.pad(x.astype(jnp.float32), ((W, W), (0, 0)))
+    out = jnp.zeros((n, F), jnp.float32)
     for k, d in enumerate(dm.offsets):
-        seg = jax.lax.dynamic_slice_in_dim(xp, W + d, n_pad, axis=0)
+        seg = jax.lax.dynamic_slice_in_dim(xp, W + d, n, axis=0)
         out = out + dm.values[:, k][:, None].astype(jnp.float32) * seg
-    return out[:n].astype(x.dtype)
+    return out.astype(x.dtype)

@@ -1,11 +1,11 @@
 """Message-passing engine: ``propagate`` / ``apply_edges`` / ``aggregate_neighbors``.
 
-The TPU-native rebuild of the GraphNeuralNetworks.jl primitives the reference
+The rebuild of the GraphNeuralNetworks.jl primitives the reference
 consumes (reference src/NeuralGraphPDE.jl:9-11; semantics documented in SURVEY
 §1 L1): for every edge ``j -> i`` (sender j, receiver i) gather ``xj`` at the
 sender, ``xi`` at the receiver and ``e`` at the edge, apply the message
-function over all edges at once (one big batched computation — the MXU-friendly
-formulation), then segment-reduce messages onto receiver nodes.
+function over all edges at once (one big batched computation), then
+segment-reduce messages onto receiver nodes.
 
 Feature arguments may be arrays ``(num_nodes, F)`` or dicts of arrays; message
 functions receive the edge-expanded version with the same structure.
@@ -89,40 +89,7 @@ def aggregate_neighbors(
     messages: jax.Array,
 ) -> jax.Array:
     """Segment-reduce ``(num_edges, F)`` messages onto receiver nodes
-    (reference ``aggregate_neighbors``).
-
-    Sum (and mean, via cached degree) aggregation routes through the Pallas
-    kernel when ``ops.precompute(g, pallas=True)`` attached an edge tiling.
-    """
-    red = canonical_reduction(aggr)
-    if (red in ("sum", "mean", "max", "min") and "tcsr_edges" in g.cache
-            and isinstance(messages, jax.Array) and messages.ndim == 2):
-        from .spmm import (_pallas_available, get_spmm_mode,
-                           segment_max_pallas, segment_min_pallas,
-                           segment_sum_pallas)
-
-        mode = get_spmm_mode()
-        if mode == "pallas" or (mode == "auto" and _pallas_available()):
-            if red in ("max", "min"):
-                # the segmented-scan kernel needs contiguous per-receiver
-                # runs inside each chunk — guaranteed by receiver-sorted
-                # edge order (precompute sorts); otherwise fall through
-                if g.receivers_sorted:
-                    fn = (segment_max_pallas if red == "max"
-                          else segment_min_pallas)
-                    return fn(g, messages)
-            else:
-                out = segment_sum_pallas(g, messages)
-                if red == "mean":
-                    if "in_degree" in g.cache:
-                        deg = g.cache["in_degree"].astype(out.dtype)
-                    else:
-                        deg = jax.ops.segment_sum(
-                            jnp.ones((g.num_edges,), out.dtype), g.receivers,
-                            g.num_nodes,
-                            indices_are_sorted=g.receivers_sorted)
-                    out = out / jnp.maximum(deg, 1.0)[:, None]
-                return out
+    (reference ``aggregate_neighbors``)."""
     return segment_reduce(
         messages, g.receivers, g.num_nodes, aggr,
         indices_are_sorted=g.receivers_sorted,
@@ -144,8 +111,8 @@ def propagate(
 
     For the fixed-message sum path (``copy_xj`` / ``e_mul_xj`` / ``w_mul_xj``
     with ``aggr='sum'``) this routes through the SpMM dispatcher
-    (:mod:`neuralgraphpde.ops.spmm`), which picks the dense-MXU, Pallas, or
-    XLA-scatter implementation.
+    (:mod:`neuralgraphpde.ops.spmm`), which picks the dense, stencil or
+    gather + segment-sum implementation.
     """
     if message is w_mul_xj and e is None:
         if "e" not in g.edata:

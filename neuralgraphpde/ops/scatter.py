@@ -2,9 +2,8 @@
 
 The functional core that replaces NNlib(CUDA)'s scatter/gather kernels
 underneath the reference's ``propagate`` (SURVEY §1 L1; reference
-src/NeuralGraphPDE.jl:13). On TPU, XLA lowers ``segment_sum`` over sorted
-segment ids to an efficient fused scatter-add; the Pallas kernels in
-``neuralgraphpde.kernels`` replace the hot paths where XLA is not enough.
+src/NeuralGraphPDE.jl:13). XLA lowers ``segment_sum`` over sorted segment
+ids to a fused gather + scatter-add.
 
 All reductions map ``(num_edges, F)`` edge values onto ``(num_segments, F)``
 rows. Supported reductions mirror the reference's pluggable ``aggr``

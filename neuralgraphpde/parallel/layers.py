@@ -105,8 +105,8 @@ class ShardedVMHConv(Layer):
                                       cell["phi"])
             return m
 
-        # fused_phi: ϕ rides the per-partition fused edge-MLP kernel when
-        # the partition carries edge tilings (else `message` is the path)
+        # fused_phi: a Dense-stack ϕ takes the per-partition fused
+        # ϕ-then-sum path (else `message` is the path)
         m = sharded_propagate(pg, message, x_aug, self.mesh, aggr=self.aggr,
                               axis_name=self.axis_name,
                               fused_phi=(self.phi, ps["phi"], edge_feats))
@@ -179,7 +179,7 @@ class ShardedMPPDEConv(Layer):
             return m
 
         # θ is replicated gdata, so its per-edge broadcast is free — the
-        # fused kernel sees it as ordinary trailing feature columns
+        # fused path sees it as ordinary trailing feature columns
         m = sharded_propagate(pg, message, x_aug, self.mesh, aggr=self.aggr,
                               axis_name=self.axis_name,
                               fused_phi=(self.phi, ps["phi"], edge_feats))
@@ -220,76 +220,6 @@ class ShardedGNOConv(Layer):
                 "phi": self.phi.initialstates(k2),
                 "graph": self.initialgraph() if self.initialgraph else None}
 
-    def _try_fused(self, x_aug, fh, phi_ps, pg):
-        """Per-partition fused GNO matvec (kernels/gno_kernels.py inside
-        shard_map): the per-edge ``in×out`` kernel matrix never exists in
-        HBM on ANY device. Engages with ``partition_graph(tiled=True)``
-        edge tilings, ϕ ending in a linear Dense, and sum/mean aggregation;
-        else returns None (message path). The ϕ PREFIX runs in XLA on the
-        gathered state pairs — only the last layer + matvec + reduce fuse,
-        mirroring the single-device ``GNOConv._fused_forward``."""
-        if pg.etile_senders is None or self.aggr not in ("sum", "mean"):
-            return None
-        from ..ops.spmm import _pallas_available, get_spmm_mode
-
-        mode = get_spmm_mode()
-        if not (mode == "pallas" or (mode == "auto" and _pallas_available())):
-            return None
-        from ..nn.conv import split_phi_last_linear
-
-        split = split_phi_last_linear(self.phi)
-        if split is None:
-            return None
-        prefix, _last = split
-        from jax.sharding import PartitionSpec as P
-
-        from ..kernels.gno_kernels import fused_gno_aggregate, pack_last_layer
-        from ..kernels.segment_kernels import TiledCSR
-        from .halo import _halo_table
-
-        n_layers = len(prefix) + 1
-        last_ps = (phi_ps[f"layer_{n_layers}"] if n_layers > 1 else phi_ps)
-        wl, bl = pack_last_layer(last_ps["weight"], last_ps.get("bias"),
-                                 self.in_chs, self.out_chs)
-        prefix_ps = [phi_ps[f"layer_{i + 1}"] for i in range(len(prefix))]
-        npp = pg.nodes_per_part
-        tn, te = pg.tile_tn, pg.tile_te
-        num_tiles = -(-npp // tn)
-        axis_name = self.axis_name
-        aggr = self.aggr
-
-        def body(x_block, senders_h, recv_l, send_idx, deg, es, er, ew, ec,
-                 pps, wl_, bl_):
-            table = _halo_table(x_block, send_idx, axis_name,
-                                pg.halo_neighbor_only)
-            xj = jnp.take(table, senders_h[0], axis=0)
-            xi = jnp.take(x_block, recv_l[0], axis=0)
-            ph = jnp.concatenate([xi[:, fh:], xj[:, fh:]], axis=-1)
-            for layer, p in zip(prefix, pps):
-                ph, _ = layer(ph, p, {})
-            tcsr = TiledCSR(senders=es[0], recv_local=er[0], wmask=ew[0],
-                            chunk_tile=ec[0], num_tiles=num_tiles, tn=tn,
-                            te=te, num_nodes=npp)
-            m = fused_gno_aggregate(ph, table[:, :fh], wl_, bl_, tcsr,
-                                    senders_h[0])[:npp]
-            if aggr == "mean":
-                m = m / jnp.maximum(deg[0], 1.0)[:, None]
-            return m
-
-        f = jax.shard_map(
-            body, mesh=self.mesh,
-            in_specs=(P(axis_name, None), P(axis_name, None),
-                      P(axis_name, None), P(axis_name, None, None),
-                      P(axis_name, None), P(axis_name, None, None),
-                      P(axis_name, None, None), P(axis_name, None, None),
-                      P(axis_name, None), P(), P(), P()),
-            out_specs=P(axis_name, None),
-            check_vma=False,
-        )
-        return f(x_aug, pg.senders_halo, pg.receivers_local, pg.send_idx,
-                 pg.in_degree, pg.etile_senders, pg.etile_recv,
-                 pg.etile_wmask, pg.etile_chunk, prefix_ps, wl, bl)
-
     def __call__(self, x, ps, st):
         from .halo import sharded_propagate
 
@@ -300,19 +230,17 @@ class ShardedGNOConv(Layer):
             [x] + [v.astype(x.dtype) for v in nd], axis=-1)
         cell = {"phi": st["phi"]}
 
-        m = self._try_fused(x_aug, fh, ps["phi"], pg)
-        if m is None:
-            def message(xi, xj, e):
-                hi_s, si = xi[:, :fh], xi[:, fh:]
-                hj, sj = xj[:, :fh], xj[:, fh:]
-                w, cell["phi"] = self.phi(
-                    jnp.concatenate([si, sj], axis=-1), ps["phi"],
-                    cell["phi"])
-                w = w.reshape(-1, self.in_chs, self.out_chs)
-                return jnp.einsum("eio,ei->eo", w, hj)
+        def message(xi, xj, e):
+            hi_s, si = xi[:, :fh], xi[:, fh:]
+            hj, sj = xj[:, :fh], xj[:, fh:]
+            w, cell["phi"] = self.phi(
+                jnp.concatenate([si, sj], axis=-1), ps["phi"],
+                cell["phi"])
+            w = w.reshape(-1, self.in_chs, self.out_chs)
+            return jnp.einsum("eio,ei->eo", w, hj)
 
-            m = sharded_propagate(pg, message, x_aug, self.mesh,
-                                  aggr=self.aggr, axis_name=self.axis_name)
+        m = sharded_propagate(pg, message, x_aug, self.mesh,
+                              aggr=self.aggr, axis_name=self.axis_name)
         y = jnp.dot(x, ps["linear"]["weight"],
                     preferred_element_type=x.dtype) + m
         if self.use_bias:

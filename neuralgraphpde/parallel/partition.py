@@ -62,22 +62,10 @@ class PartitionedGraph:
     senders_bnd: Optional[jax.Array] = None  # (P, Eb_max) int32 halo-row ids
     recv_bnd: Optional[jax.Array] = None  # (P, Eb_max) int32
     mask_bnd: Optional[jax.Array] = None  # (P, Eb_max, 1) float32
-    # --- per-partition banded storage of the INTERIOR edges (optional,
-    # partition_graph(banded_tb=...)): the streaming banded kernel runs on
-    # each device's local block while the halo is in flight; boundary edges
-    # stay on the split arrays above. band_offsets is the union over
-    # partitions (absent bands are zero blocks).
-    band_data: Optional[jax.Array] = None  # (P, n_bands, nb, TB, TB)
-    band_data_rev: Optional[jax.Array] = None  # A^T bands (for VJPs)
-    band_offsets: tuple = ()
-    band_tb: int = 0
     # --- per-partition DIA (scalar-diagonal) storage of the INTERIOR edges
-    # (preferred over bands when the local structure is a stencil — strip
-    # partitions of regular grids preserve the diagonal offsets). Offsets
-    # are a symmetric union across partitions, so the reverse values share
-    # the same static tuple.
-    dia_values: Optional[jax.Array] = None  # (P, npp_pad, K)
-    dia_values_rev: Optional[jax.Array] = None  # Aᵀ values
+    # (strip partitions of regular grids preserve the diagonal offsets). Offsets
+    # are a symmetric union across partitions (one static tuple for all).
+    dia_values: Optional[jax.Array] = None  # (P, nodes_per_part, K)
     dia_offsets: tuple = ()
     # per-partition edge features (P, E_max, F), permuted like the edges
     edata: FeatureDict = dataclasses.field(default_factory=dict)
@@ -87,41 +75,12 @@ class PartitionedGraph:
     # (the reference's gdata/θ contract, src/layers.jl:397)
     gdata: FeatureDict = dataclasses.field(default_factory=dict)
     num_graphs: int = 1
-    # Optional per-partition Pallas tilings (leading P axis, chunk counts
-    # padded to the max partition): lets shard_map bodies run the tiled-CSR
-    # kernel on their local edges. Built by partition_graph(tiled=True).
-    tile_senders: Optional[jax.Array] = None  # (P, C, TE) halo-table indices
-    tile_recv: Optional[jax.Array] = None  # (P, C, TE)
-    tile_wmask: Optional[jax.Array] = None  # (P, C, TE)
-    tile_chunk: Optional[jax.Array] = None  # (P, C)
-    tile_tn: int = 0
-    tile_te: int = 0
-    # Per-partition EDGE-index tilings (local edge-slot ids instead of
-    # halo-table node ids): lets shard_map bodies run the fused edge-MLP
-    # Pallas kernel (kernels/fused_mlp_kernels.py) on any per-edge message
-    # tensor — the distributed analog of ``cache['tcsr_edges']``. Built by
-    # partition_graph(tiled=True) alongside the node tilings.
-    etile_senders: Optional[jax.Array] = None  # (P, C_e, TE) edge-slot ids
-    etile_recv: Optional[jax.Array] = None  # (P, C_e, TE)
-    etile_wmask: Optional[jax.Array] = None  # (P, C_e, TE)
-    etile_chunk: Optional[jax.Array] = None  # (P, C_e)
     # True when every halo row travels between ADJACENT partitions only
     # (strip partitions of spatially ordered meshes): the exchange then
     # rides two neighbor ppermutes — 2·H rows on the wire per device
-    # instead of the dense all_to_all's (P-1)·H — so the ICI cost of a halo
+    # instead of the dense all_to_all's (P-1)·H — so the link traffic of a halo
     # exchange stays FLAT in P (examples/comm_model.py quantifies this).
     halo_neighbor_only: bool = False
-    # --- per-partition PACKED block bands of the interior edges (r5): the
-    # distributed analog of ops.bsr.PackedBanded for partitions of
-    # RCM-ordered unstructured meshes (narrow-banded interiors whose dense
-    # diagonals would be mostly zeros). Tall TBRxTBC blocks, slot-padded
-    # uniformly across partitions.
-    pband_blocks: Optional[jax.Array] = None  # (P, S, nbr, TBR, TBC)
-    pband_blocks_rev: Optional[jax.Array] = None  # A^T packed
-    pband_cols: Optional[jax.Array] = None  # (P, nbr, S) int32
-    pband_cols_rev: Optional[jax.Array] = None
-    pband_tb: int = 0  # block column width
-    pband_tb_rows: int = 0  # block row height
 
     @property
     def padded_nodes(self) -> int:
@@ -132,44 +91,26 @@ class PartitionedGraph:
                     self.in_degree, self.node_mask, self.send_idx,
                     self.senders_halo, self.senders_int, self.recv_int,
                     self.mask_int, self.senders_bnd, self.recv_bnd,
-                    self.mask_bnd, self.band_data, self.band_data_rev,
-                    self.dia_values, self.dia_values_rev,
-                    self.edata, self.ndata, self.gdata,
-                    self.tile_senders, self.tile_recv, self.tile_wmask,
-                    self.tile_chunk, self.etile_senders, self.etile_recv,
-                    self.etile_wmask, self.etile_chunk,
-                    self.pband_blocks, self.pband_blocks_rev,
-                    self.pband_cols, self.pband_cols_rev)
+                    self.mask_bnd, self.dia_values,
+                    self.edata, self.ndata, self.gdata)
         aux = (self.num_partitions, self.nodes_per_part, self.num_nodes,
-               self.num_edges, self.halo_size, self.tile_tn, self.tile_te,
-               self.band_offsets, self.band_tb, self.dia_offsets,
-               self.num_graphs, self.halo_neighbor_only, self.pband_tb,
-               self.pband_tb_rows)
+               self.num_edges, self.halo_size, self.dia_offsets,
+               self.num_graphs, self.halo_neighbor_only)
         return children, aux
 
     @classmethod
     def tree_unflatten(cls, aux, children):
         (senders_global, receivers_local, edge_mask, in_degree, node_mask,
          send_idx, senders_halo, senders_int, recv_int, mask_int,
-         senders_bnd, recv_bnd, mask_bnd, band_data, band_data_rev,
-         dia_values, dia_values_rev, edata, ndata, gdata, tile_senders,
-         tile_recv, tile_wmask, tile_chunk, etile_senders, etile_recv,
-         etile_wmask, etile_chunk, pband_blocks, pband_blocks_rev,
-         pband_cols, pband_cols_rev) = children
-        (P, npp, n, e, h, ttn, tte, boffs, btb, doffs, ng, nbr,
-         ptb, ptbr) = aux
+         senders_bnd, recv_bnd, mask_bnd, dia_values, edata,
+         ndata, gdata) = children
+        P, npp, n, e, h, doffs, ng, nbr = aux
         return cls(senders_global, receivers_local, edge_mask, in_degree,
                    node_mask, P, npp, n, e, h, send_idx, senders_halo,
                    senders_int, recv_int, mask_int, senders_bnd, recv_bnd,
-                   mask_bnd, band_data, band_data_rev, boffs, btb,
-                   dia_values, dia_values_rev, doffs,
-                   dict(edata), dict(ndata), dict(gdata), ng, tile_senders,
-                   tile_recv, tile_wmask, tile_chunk, ttn, tte,
-                   etile_senders, etile_recv, etile_wmask, etile_chunk,
-                   halo_neighbor_only=nbr, pband_blocks=pband_blocks,
-                   pband_blocks_rev=pband_blocks_rev, pband_cols=pband_cols,
-                   pband_cols_rev=pband_cols_rev, pband_tb=ptb,
-                   pband_tb_rows=ptbr)
+                   mask_bnd, dia_values, doffs,
+                   dict(edata), dict(ndata), dict(gdata), ng,
+                   halo_neighbor_only=nbr)
 
 
 def partition_graph(
@@ -179,15 +120,8 @@ def partition_graph(
     pad_edges_to_multiple: int = 128,
     halo: bool = True,
     pad_halo_to_multiple: int = 8,
-    tiled: bool = False,
-    tile_tn: int = 0,
-    tile_te: int = 0,
-    banded_tb: int = 0,
-    banded_dtype=None,
-    banded_max_bands: int = 16,
     dia: bool = True,
     dia_dtype=None,
-    pbanded: bool = True,
 ) -> PartitionedGraph:
     """Partition ``g`` by receiver into contiguous node blocks.
 
@@ -196,12 +130,10 @@ def partition_graph(
     (all_to_all halo) instead of all-gathering every node row. For spatially
     ordered meshes the halo volume is a small fraction of the node count.
 
-    ``banded_tb > 0`` additionally packs each partition's INTERIOR edges
-    into per-partition diagonal-band block storage (offsets unioned across
-    partitions) so the sharded SpMM runs the streaming banded kernel on the
-    local block while the halo exchange is in flight — the multi-chip mesh
-    fast path. Skipped (with zero-band fields) when the interior structure
-    is not banded within ``banded_max_bands`` diagonals.
+    ``dia=True`` (default) additionally stores each partition's INTERIOR
+    edges as scalar diagonals when they form a stencil (strip partitions of
+    grids), so the sharded SpMM runs the XLA stencil on the local block
+    while the halo exchange is in flight.
     """
     P = num_partitions
     if g.host_coo is not None:
@@ -334,68 +266,6 @@ def partition_graph(
             r_bnd[q, :nb] = recv_l[q, :hi - lo][~own]
             m_bnd[q, :nb] = 1.0
 
-    tile_kw = {}
-    if tiled and halo:
-        from ..kernels.segment_kernels import (
-            TE_DEFAULT, TN_DEFAULT, build_tiled_csr,
-        )
-
-        tn = tile_tn or TN_DEFAULT
-        te = tile_te or TE_DEFAULT
-        parts = []
-        for q in range(P):
-            n_q = int(counts[q])
-            t = build_tiled_csr(
-                senders_halo[q, :n_q], recv_l[q, :n_q], npp, tn=tn, te=te,
-                edge_weight=emask[q, :n_q])
-            parts.append(t)
-        c_max = max(int(t.chunk_tile.shape[0]) for t in parts)
-        num_tiles = parts[0].num_tiles
-        ts_ = np.zeros((P, c_max, te), np.int32)
-        tr_ = np.zeros((P, c_max, te), np.int32)
-        tw_ = np.zeros((P, c_max, te), np.float32)
-        # pad chunks keep the LAST tile id so the kernel's first-visit
-        # detection never re-zeroes an earlier tile
-        tc_ = np.full((P, c_max), num_tiles - 1, np.int32)
-        for q, t in enumerate(parts):
-            C_q = int(t.chunk_tile.shape[0])
-            ts_[q, :C_q] = np.asarray(t.senders)
-            tr_[q, :C_q] = np.asarray(t.recv_local)
-            tw_[q, :C_q] = np.asarray(t.wmask)
-            tc_[q, :C_q] = np.asarray(t.chunk_tile)
-        tile_kw = dict(
-            tile_senders=jnp.asarray(ts_), tile_recv=jnp.asarray(tr_),
-            tile_wmask=jnp.asarray(tw_), tile_chunk=jnp.asarray(tc_),
-            tile_tn=tn, tile_te=te,
-        )
-
-        # Edge-index tilings (sender = local edge slot): the fused edge-MLP
-        # kernel reduces arbitrary per-edge message tensors per partition
-        # (distributed tcsr_edges). Same (C_e, TE) across partitions so the
-        # arrays shard over the mesh axis.
-        eparts = []
-        for q in range(P):
-            n_q = int(counts[q])
-            eparts.append(build_tiled_csr(
-                np.arange(max(n_q, 1), dtype=np.int64),
-                recv_l[q, :max(n_q, 1)], npp, tn=tn, te=te,
-                edge_weight=emask[q, :max(n_q, 1)]))
-        ce_max = max(int(t.chunk_tile.shape[0]) for t in eparts)
-        es_ = np.zeros((P, ce_max, te), np.int32)
-        er_ = np.zeros((P, ce_max, te), np.int32)
-        ew_ = np.zeros((P, ce_max, te), np.float32)
-        ec_ = np.full((P, ce_max), num_tiles - 1, np.int32)
-        for q, t in enumerate(eparts):
-            C_q = int(t.chunk_tile.shape[0])
-            es_[q, :C_q] = np.asarray(t.senders)
-            er_[q, :C_q] = np.asarray(t.recv_local)
-            ew_[q, :C_q] = np.asarray(t.wmask)
-            ec_[q, :C_q] = np.asarray(t.chunk_tile)
-        tile_kw.update(
-            etile_senders=jnp.asarray(es_), etile_recv=jnp.asarray(er_),
-            etile_wmask=jnp.asarray(ew_), etile_chunk=jnp.asarray(ec_),
-        )
-
     split_kw = {}
     if senders_halo is not None:
         send_idx = jnp.asarray(send_idx)
@@ -408,19 +278,7 @@ def partition_graph(
         )
         if dia:
             split_kw.update(_build_partition_dia(
-                s_int, r_int, m_int, P, npp, dia_dtype or banded_dtype))
-        if banded_tb > 0 and "dia_values" not in split_kw:
-            split_kw.update(_build_partition_bands(
-                s_int, r_int, m_int, P, npp, banded_tb, banded_dtype,
-                banded_max_bands))
-        if ("dia_values" not in split_kw and "band_data" not in split_kw
-                and pbanded):
-            # unstructured-but-narrow interiors (RCM-ordered meshes): the
-            # packed block bands keep the structured fast path where the
-            # stencil/dense-band gates refuse (r5)
-            split_kw.update(_build_partition_pbanded(
-                s_int, r_int, m_int, P, npp,
-                dia_dtype or banded_dtype))
+                s_int, r_int, m_int, P, npp, dia_dtype))
 
     return PartitionedGraph(
         senders_global=jnp.asarray(senders_g),
@@ -445,18 +303,17 @@ def partition_graph(
         gdata={k: jnp.asarray(np.asarray(v)) for k, v in g.gdata.items()},
         num_graphs=g.num_graphs,
         **split_kw,
-        **tile_kw,
     )
 
 
 def _build_partition_dia(s_int, r_int, m_int, P, npp, dtype,
-                         max_diags: int = 32, tile: int = 512):
+                         max_diags: int = 32):
     """Per-partition DIA (scalar-diagonal) storage of the interior edges —
     the stencil fast path inside shard_map. Strip partitions of regular
     grids keep the global stencil offsets, so the union across partitions
-    stays tiny; unstructured interiors fail the gate and fall back to the
-    banded/tiled paths. The offset tuple is the SYMMETRIC union, so the
-    reverse (Aᵀ) values ride the same static offsets."""
+    stays tiny; unstructured interiors fail the gate and keep the gather
+    path. The offset tuple is the symmetric union of the interior
+    offsets."""
     valid = m_int > 0
     sl = s_int[valid].astype(np.int64)
     rl = r_int[valid].astype(np.int64)
@@ -471,117 +328,17 @@ def _build_partition_dia(s_int, r_int, m_int, P, npp, dtype,
             or len(offs) > max(0.6 * (2 * npp - 1), 2)):
         return {}
     K = len(offs)
-    npp_pad = -(-npp // tile) * tile
     jdtype = (jnp.bfloat16 if dtype in ("bfloat16", jnp.bfloat16)
               else jnp.float32)
 
     def scatter(src, dst):
         k = np.searchsorted(offs, src - dst)
-        vals = np.zeros((P, npp_pad, K), np.float32)
+        vals = np.zeros((P, npp, K), np.float32)
         np.add.at(vals, (qv, dst, k), 1.0)
         return jnp.asarray(vals).astype(jdtype)
 
-    return dict(dia_values=scatter(sl, rl), dia_values_rev=scatter(rl, sl),
+    return dict(dia_values=scatter(sl, rl),
                 dia_offsets=tuple(int(d) for d in offs))
-
-
-def _build_partition_pbanded(s_int, r_int, m_int, P, npp, dtype,
-                             tb_c: int = 128, tb_r: int = 512,
-                             max_slots: int = 32):
-    """Per-partition PACKED (row-list) block bands of the interior edges —
-    the distributed analog of ``ops.bsr.PackedBanded`` (r5): partitions of
-    RCM-ordered unstructured meshes have narrow-banded interiors whose
-    dense diagonals would be mostly zeros. Tall 512x128 blocks; slot count
-    padded to the max over partitions so shapes stay uniform."""
-    nbr = -(-npp // tb_r)
-    nbc = -(-npp // tb_c)
-    if nbr < 4:
-        return {}
-    valid = m_int > 0
-    sl = s_int[valid].astype(np.int64)
-    rl = r_int[valid].astype(np.int64)
-    if len(sl) == 0:
-        return {}
-    qv = np.broadcast_to(np.arange(P)[:, None], m_int.shape)[valid]
-    jdtype = (jnp.bfloat16 if dtype in ("bfloat16", jnp.bfloat16)
-              else jnp.float32)
-
-    def build(src, dst):
-        key = (qv * nbr + dst // tb_r) * nbc + src // tb_c
-        uniq, inv = np.unique(key, return_inverse=True)
-        u_qr = uniq // nbc
-        u_c = uniq % nbc
-        first = np.concatenate([[0], np.flatnonzero(np.diff(u_qr)) + 1])
-        gid = np.searchsorted(first, np.arange(len(uniq)),
-                              side="right") - 1
-        rank = np.arange(len(uniq)) - first[gid]
-        per_row = np.diff(np.concatenate([first, [len(uniq)]]))
-        S = int(per_row.max())
-        # the distributed alternative is the tiled GATHER path, not dense
-        # bands, so a moderate occupancy still wins — refuse only when the
-        # row lists are effectively dense (mirrors _build_partition_dia)
-        if S > min(max_slots, max(int(0.6 * nbc), 1)):
-            return None, 0
-        own = np.minimum(np.arange(nbr, dtype=np.int64) * (tb_r // tb_c),
-                         nbc - 1)
-        cols = np.tile(own[None, :, None], (P, 1, S)).copy()
-        cols[u_qr // nbr, u_qr % nbr, rank] = u_c
-        slot = rank[inv]
-        flat = ((((slot * P + qv) * nbr + dst // tb_r) * tb_r
-                 + dst % tb_r) * tb_c + src % tb_c)
-        host = np.zeros((S * P * nbr * tb_r * tb_c,), np.float32)
-        np.add.at(host, flat, 1.0)
-        blocks = jnp.asarray(
-            host.reshape(S, P, nbr, tb_r, tb_c).transpose(1, 0, 2, 3, 4)
-        ).astype(jdtype)
-        return (blocks, jnp.asarray(cols, jnp.int32)), S
-
-    fwd, S = build(sl, rl)
-    if fwd is None:
-        return {}
-    rev, S_r = build(rl, sl)
-    if rev is None:
-        return {}
-    return dict(pband_blocks=fwd[0], pband_cols=fwd[1],
-                pband_blocks_rev=rev[0], pband_cols_rev=rev[1],
-                pband_tb=tb_c, pband_tb_rows=tb_r)
-
-
-def _build_partition_bands(s_int, r_int, m_int, P, npp, tb, dtype,
-                           max_bands):
-    """Per-partition banded storage of the interior edges (+ the reversed
-    orientation for VJPs), built with one on-device scatter-add each."""
-    nb = -(-npp // tb)
-    valid = m_int > 0
-    sl = s_int[valid].astype(np.int64)
-    rl = r_int[valid].astype(np.int64)
-    qv = np.broadcast_to(np.arange(P)[:, None], m_int.shape)[valid]
-    offs_fwd = np.unique(sl // tb - rl // tb)
-    # refuse only when most possible diagonals are populated (then the
-    # structure is effectively dense and the tiled path is better)
-    if (len(offs_fwd) > max_bands
-            or len(offs_fwd) > max(0.6 * (2 * nb - 1), 2)):
-        return {}
-    jdtype = (jnp.bfloat16 if dtype in ("bfloat16", jnp.bfloat16)
-              else jnp.float32)
-    # forward and reverse (A^T, for the VJP) share one static offset tuple
-    offs = np.unique(np.concatenate([offs_fwd, -offs_fwd]))
-    if len(offs) > max_bands:
-        offs = offs_fwd  # forward-only; the VJP transposes on the fly
-
-    def scatter(src, dst):
-        k = np.searchsorted(offs, src // tb - dst // tb)
-        flat = (((qv * len(offs) + k) * nb + dst // tb) * tb
-                + dst % tb) * tb + (src % tb)
-        shape = (P, len(offs), nb, tb, tb)
-        return jnp.zeros((int(np.prod(shape)),), jnp.float32).at[
-            jnp.asarray(flat)].add(1.0).reshape(shape).astype(jdtype)
-
-    band = scatter(sl, rl)
-    # the reverse build is valid iff every negated forward offset is present
-    band_rev = scatter(rl, sl) if np.all(np.isin(-offs_fwd, offs)) else None
-    return dict(band_data=band, band_data_rev=band_rev,
-                band_offsets=tuple(int(d) for d in offs), band_tb=tb)
 
 
 def reorder_for_partition(g: GnnGraph, num_partitions: int):

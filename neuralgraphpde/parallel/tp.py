@@ -4,7 +4,7 @@ GNN-PDE models are dominated by edge-batched MLPs (``num_edges × hidden``
 GEMMs). When hidden widths are large, shard the *feature* dimension of Dense
 kernels over a mesh axis with ``NamedSharding`` and let XLA's SPMD partitioner
 insert the collectives — the GSPMD recipe: annotate, jit, let the compiler
-place all-gathers/reduce-scatters on the ICI.
+place all-gathers/reduce-scatters on the device links.
 
 Convention: Dense kernels ``(in, out)`` shard on ``out`` (column parallel);
 biases ``(1, out)`` likewise. Successive layers then alternate
@@ -62,7 +62,7 @@ def row_parallel_dense(
     on ``axis_name``, ``weight`` is row-sharded to match, each shard
     computes its partial ``x_shard @ w_shard`` and one ``psum`` over
     ``axis_name`` restores the full output (Megatron MLP pairing; the
-    all-reduce rides the ICI).
+    all-reduce rides the device links).
 
     Composes with ``sharded_spmm(..., feature_axis=axis_name)``: aggregate
     with 2-D graph×model sharding, then contract the model axis away here.

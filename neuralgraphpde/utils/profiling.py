@@ -10,7 +10,7 @@ import jax
 
 
 @contextlib.contextmanager
-def trace(dirname: str = "/tmp/ngpde-trace"):
+def trace(dirname: str):
     """Capture a Perfetto/XPlane trace of the enclosed block."""
     jax.profiler.start_trace(dirname)
     try:
@@ -37,17 +37,38 @@ def benchmark_fn(fn: Callable, *args, iters: int = 10,
     return {"mean_s": dt, "per_s": 1.0 / dt}
 
 
+# Published peaks per device, keyed by ``jax.Device.device_kind``. Source:
+# NVIDIA H200 data sheet (SXM part, dense rates without sparsity, at the
+# full 700 W power limit). A card set to a lower power limit cannot hold
+# these rates; report the limit beside every share computed from them.
+PEAKS = {
+    "NVIDIA H200": {"hbm_bytes_per_s": 4.8e12, "bf16_flops": 989e12,
+                    "tf32_flops": 495e12, "f32_flops": 67e12},
+}
+
+
+def device_peaks(device_kind: str) -> Dict[str, float]:
+    """Peak rates for ``device_kind``; an unknown device is an error, not a
+    default."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(f"no published peaks for device kind "
+                       f"{device_kind!r}; add them to PEAKS with their "
+                       f"source") from None
+
+
 def spmm_roofline(num_edges: int, feature_dim: int, seconds: float,
-                  dtype_bytes: int = 4,
-                  hbm_gbps: float = 819.0) -> Dict[str, float]:
-    """Edges/s against the HBM-bandwidth bound for gather+scatter SpMM.
+                  device_kind: str,
+                  dtype_bytes: int = 4) -> Dict[str, float]:
+    """Edges/s against the HBM-bandwidth bound for gather + scatter SpMM.
 
     Lower-bound traffic per edge ≈ read + write of one feature row (ignoring
-    cache reuse): ``2 · F · dtype_bytes``. v5e HBM ≈ 819 GB/s.
+    cache reuse): ``2 · F · dtype_bytes``, at the device's peak HBM rate.
     """
     eps = num_edges / seconds
     bytes_per_edge = 2 * feature_dim * dtype_bytes
-    sol_eps = hbm_gbps * 1e9 / bytes_per_edge
+    sol_eps = device_peaks(device_kind)["hbm_bytes_per_s"] / bytes_per_edge
     return {
         "edges_per_s": eps,
         "speed_of_light_edges_per_s": sol_eps,

@@ -4,7 +4,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from neuralgraphpde import grid_graph_2d, rand_graph
-from neuralgraphpde.ops.bsr import bsr_spmm, build_bsr, precompute_bsr
+from neuralgraphpde.ops.bsr import bsr_spmm, build_bsr
 from neuralgraphpde.ops.spmm import spmm_xla
 
 
@@ -38,24 +38,23 @@ def test_bsr_weighted():
 
 
 def test_bsr_density_gate_and_dispatch():
-    from neuralgraphpde.ops import spmm
+    from neuralgraphpde.ops import precompute, spmm
 
-    # spatial mesh: the grid is scalar-diagonal -> DIA wins outright
+    # spatial mesh: the grid is scalar-diagonal -> the DIA stencil, and no
+    # block format is built
     g = grid_graph_2d(32, 32)
-    gp = precompute_bsr(g, tb=64)
-    assert "dia" in gp.cache and "dia_rev" in gp.cache
-    # with DIA disabled, banded storage wins; packed BSR is the fallback
-    gb = precompute_bsr(g, tb=64, dia=False)
-    assert "banded" in gb.cache or "bsr" in gb.cache
+    gp = precompute(g, dense=False)
+    assert "dia" in gp.cache
+    assert not ({"bsr", "banded", "pbanded"} & set(gp.cache))
     x = jnp.asarray(np.random.default_rng(2).normal(size=(1024, 8))
                     .astype(np.float32))
     want = np.asarray(spmm_xla(g, x))
     got = np.asarray(spmm(gp, x))
     assert np.allclose(got, want, atol=1e-4)
 
-    # random graph: dense blocks -> gate refuses
+    # random graph: no structure is attached, the gather path runs
     gr = rand_graph(256, 8000, seed=3)
-    gr2 = precompute_bsr(gr, tb=32)
+    gr2 = precompute(gr, dense=False)
     assert not ({"bsr", "banded", "dia"} & set(gr2.cache))
 
 
@@ -117,8 +116,8 @@ def test_banded_gradient():
 
 
 def test_banded_bf16_blocks():
-    """bf16-stored bands compute in bf16 (MXU double rate) with f32
-    accumulation; output dtype follows x; error stays at bf16 level."""
+    """bf16-stored bands compute in bf16 with f32 accumulation; output
+    dtype follows x; error stays at bf16 level."""
     from neuralgraphpde.ops.bsr import banded_spmm, build_banded
 
     g = grid_graph_2d(20, 20)

@@ -140,16 +140,15 @@ def test_dataset_generators_shapes():
 
 
 @pytest.mark.skipif(not os.environ.get("NGPDE_SLOW"),
-                    reason="full VMH parity run (~hours on CPU, ~110 min on "
-                           "TPU); set NGPDE_SLOW=1. The r3 200-epoch TPU "
-                           "curve is recorded in artifacts/vmh_parity.jsonl "
-                           "and PARITY.md")
+                    reason="full VMH parity run (~hours on CPU); set "
+                           "NGPDE_SLOW=1. The recorded 200-epoch curve is in "
+                           "PARITY.md")
 def test_vmh_full_parity_curve():
     """Full reference VMH protocol (24 sims x 3000 Delaunay points, Rprop,
     200 epochs — reference docs/src/tutorials/VMH.md:53-148) on this repo's
     synthetic convection-diffusion stand-in (the reference's
-    convdiff_n3000.jld2 needs a network download). Pins the recorded r3
-    outcome: 0.0801 -> 0.0318 train MSE (artifacts/vmh_parity.jsonl).
+    convdiff_n3000.jld2 needs a network download). Pins the recorded
+    outcome: 0.0801 -> 0.0318 train MSE (PARITY.md).
     The reference's absolute 200-epoch value (0.00098, on ITS dataset)
     is the target once the real dataset can be mounted — see PARITY.md
     "VMH parity curve" for the honest comparison."""

@@ -25,30 +25,6 @@ def test_csr_offsets():
     assert np.array_equal(off, want)
 
 
-def test_tiled_csr_matches_python_builder():
-    from neuralgraphpde.kernels.segment_kernels import TiledCSR
-
-    rng = np.random.default_rng(2)
-    n, e = 100, 2000
-    s = rng.integers(0, n, e).astype(np.int32)
-    r = rng.integers(0, n, e).astype(np.int32)
-    w = rng.normal(size=e).astype(np.float32)
-
-    sk, rl, wm, ct = native.tiled_csr(s, r, n, edge_weight=w, tn=16, te=64)
-
-    # semantic check: reconstruct the weighted scatter and compare
-    x = rng.normal(size=(n, 8)).astype(np.float32)
-    out = np.zeros((-(-n // 16) * 16, 8), np.float32)
-    for c in range(sk.shape[0]):
-        t = ct[c]
-        for j in range(64):
-            out[t * 16 + rl[c, j]] += wm[c, j] * x[sk[c, j]]
-    want = np.zeros_like(out)
-    for k in range(e):
-        want[r[k]] += w[k] * x[s[k]]
-    assert np.allclose(out, want, atol=1e-4)
-
-
 def test_greedy_partition_balanced():
     rng = np.random.default_rng(3)
     n, e, p = 1000, 20000, 8

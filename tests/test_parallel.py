@@ -259,35 +259,6 @@ def test_tensor_parallel_mlp_matches_replicated():
 
 
 @pytest.mark.slow
-def test_sharded_spmm_tiled_pallas(mesh):
-    """Per-partition Pallas tiled-CSR inside shard_map (interpret mode) must
-    match the XLA halo path and single-device spmm."""
-    from jax.experimental.pallas import tpu as pltpu
-
-    g = rand_graph(96, 600, seed=13)
-    pg = partition_graph(g, NDEV, halo=True, tiled=True, tile_tn=8,
-                         tile_te=32)
-    assert pg.tile_senders is not None
-    x = np.random.default_rng(13).normal(size=(96, 16)).astype(np.float32)
-    want = np.asarray(spmm(g, jnp.asarray(x)))
-    xp = shard_node_features(pad_node_features(x, pg), pg, mesh)
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(sharded_spmm(pg, xp, mesh))[: g.num_nodes]
-    assert np.allclose(got, want, atol=1e-4)
-
-    # gradient flows through kernel + halo transpose
-    def loss(xp):
-        with pltpu.force_tpu_interpret_mode():
-            return jnp.sum(sharded_spmm(pg, xp, mesh)[: g.num_nodes] ** 2)
-
-    gx = jax.grad(loss)(xp)
-    pg_x = partition_graph(g, NDEV, halo=True)
-    gx_ref = jax.grad(lambda xp: jnp.sum(
-        sharded_spmm(pg_x, xp, mesh)[: g.num_nodes] ** 2))(xp)
-    assert np.allclose(np.asarray(gx), np.asarray(gx_ref), atol=1e-4)
-
-
-@pytest.mark.slow
 def test_sharded_mppde_matches_single_device(mesh):
     from neuralgraphpde import Dense, MPPDEConv
     from neuralgraphpde.parallel import ShardedMPPDEConv
@@ -438,93 +409,6 @@ def test_overlap_split_metadata_and_parity():
     want = spmm_xla(g, x)
     np.testing.assert_allclose(np.asarray(y), np.asarray(want),
                                rtol=1e-5, atol=1e-5)
-
-
-@pytest.mark.slow
-def test_sharded_spmm_banded_kernel():
-    """Per-partition banded kernel inside shard_map (interpret mode):
-    interior edges on the streaming kernel, boundary through the halo —
-    must match the single-device SpMM, forward and gradient."""
-    import numpy as np
-    from jax.experimental.pallas import tpu as pltpu
-
-    from neuralgraphpde.graph.builders import grid_graph_2d
-    from neuralgraphpde.parallel.halo import make_mesh, sharded_spmm
-    from neuralgraphpde.parallel.partition import (
-        pad_node_features, partition_graph, unpad_node_features,
-    )
-
-    g = grid_graph_2d(64, 16, diagonals=True)  # strips of 8 rows per device
-    P_ = 8
-    pg = partition_graph(g, P_, banded_tb=32, dia=False)  # test the BANDED path (DIA would win otherwise)
-    assert pg.band_data is not None, "banded interior structure expected"
-    assert pg.band_data_rev is not None
-    # every interior edge is in the bands; boundary count matches the split
-    n_band_edges = float(jnp.sum(pg.band_data.astype(jnp.float32)))
-    assert int(n_band_edges) == int(jnp.sum(pg.mask_int))
-
-    mesh = make_mesh(P_)
-    x = jnp.asarray(np.random.default_rng(0).normal(
-        size=(g.num_nodes, 8)).astype(np.float32))
-    xp = jnp.asarray(pad_node_features(np.asarray(x), pg))
-
-    from neuralgraphpde.ops.spmm import spmm_xla
-
-    with mesh, pltpu.force_tpu_interpret_mode():
-        y = unpad_node_features(sharded_spmm(pg, xp, mesh), pg)
-        want = spmm_xla(g, x)
-        np.testing.assert_allclose(np.asarray(y), np.asarray(want),
-                                   rtol=1e-5, atol=1e-5)
-
-        # gradient through the distributed banded kernel
-        gp = jax.grad(lambda v: jnp.sum(
-            unpad_node_features(sharded_spmm(pg, v, mesh), pg) ** 2))(xp)
-    gr = jax.grad(lambda v: jnp.sum(spmm_xla(g, v) ** 2))(x)
-    np.testing.assert_allclose(np.asarray(gp[:g.num_nodes]), np.asarray(gr),
-                               rtol=1e-4, atol=1e-4)
-
-
-@pytest.mark.slow
-def test_sharded_gcn_banded_matches_single_device():
-    """sharded_gcn_forward on a banded partition (interpret mode) matches
-    the single-device GCNConv forward."""
-    import numpy as np
-    from jax.experimental.pallas import tpu as pltpu
-
-    from neuralgraphpde import GCNConv, setup, update_graph
-    from neuralgraphpde.graph.builders import grid_graph_2d
-    from neuralgraphpde.graph.transforms import add_self_loops
-    from neuralgraphpde.parallel.halo import make_mesh, sharded_gcn_forward
-    from neuralgraphpde.parallel.partition import (
-        pad_node_features, partition_graph, unpad_node_features,
-    )
-
-    g = add_self_loops(grid_graph_2d(64, 16, diagonals=True))
-    P_ = 8
-    pg = partition_graph(g, P_, banded_tb=32, dia=False)  # test the BANDED path (DIA would win otherwise)
-    assert pg.band_data is not None
-
-    layer = GCNConv(8, 8, "tanh", add_self_loops=False)
-    ps, st = setup(jax.random.PRNGKey(0), layer)
-    st = update_graph(st, g)
-    x = jnp.asarray(np.random.default_rng(1).normal(
-        size=(g.num_nodes, 8)).astype(np.float32))
-    from neuralgraphpde.ops.spmm import set_spmm_mode
-
-    set_spmm_mode("xla")
-    try:
-        want, _ = layer(x, ps, st)
-    finally:
-        set_spmm_mode("auto")
-
-    mesh = make_mesh(P_)
-    xp = jnp.asarray(pad_node_features(np.asarray(x), pg))
-    with mesh, pltpu.force_tpu_interpret_mode():
-        y = sharded_gcn_forward(pg, xp, ps["weight"], ps.get("bias"), mesh,
-                                activation=jnp.tanh)
-    y = unpad_node_features(y, pg)
-    np.testing.assert_allclose(np.asarray(y), np.asarray(want),
-                               rtol=1e-4, atol=1e-5)
 
 
 def test_sharded_spmm_2d_mesh_feature_axis():

@@ -1,16 +1,15 @@
 """Per-partition DIA (stencil) path inside shard_map: strip-partitioned
 grid meshes keep their scalar-diagonal structure per partition, so the
-sharded SpMM / GCN forward ride the stencil kernel (or its XLA stencil
-fallback off-TPU) — parity vs the single-device scatter reference."""
+sharded SpMM / GCN forward ride the XLA stencil — parity vs the
+single-device scatter reference."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from neuralgraphpde import add_self_loops, rand_graph
 from neuralgraphpde.graph.builders import grid_graph_2d
-from neuralgraphpde.ops.spmm import set_spmm_mode, spmm_xla
+from neuralgraphpde.ops.spmm import spmm_xla
 from neuralgraphpde.parallel import (make_mesh, pad_node_features,
                                      partition_graph, shard_node_features,
                                      sharded_spmm)
@@ -55,19 +54,19 @@ def test_sharded_spmm_dia_matches_single_device(mesh):
     np.testing.assert_allclose(got, want, atol=1e-4)
 
 
-def test_sharded_spmm_dia_pallas_interpret(mesh):
+def test_sharded_spmm_dia_gradient_matches_single_device(mesh):
+    """The VJP of the per-partition stencil (autodiff through the shifted
+    slices and the halo exchange) equals the scatter reference's."""
     g, pg = _grid_pg(8)
     rng = np.random.default_rng(1)
     x_np = rng.normal(size=(g.num_nodes, 8)).astype(np.float32)
-    want = np.asarray(spmm_xla(g, jnp.asarray(x_np)))
+    want = np.asarray(jax.grad(
+        lambda v: jnp.sum(jnp.tanh(spmm_xla(g, v)) ** 2))(
+            jnp.asarray(x_np)))
     x = shard_node_features(pad_node_features(x_np, pg), pg, mesh)
-    set_spmm_mode("pallas")
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            got = np.asarray(sharded_spmm(pg, x, mesh))[: g.num_nodes]
-    finally:
-        set_spmm_mode("auto")
-    np.testing.assert_allclose(got, want, atol=1e-4)
+    got = np.asarray(jax.grad(
+        lambda v: jnp.sum(jnp.tanh(sharded_spmm(pg, v, mesh)) ** 2))(x))
+    np.testing.assert_allclose(got[: g.num_nodes], want, atol=1e-4)
 
 
 def test_sharded_gcn_dia_matches_single_device(mesh):

@@ -1,13 +1,12 @@
-"""Per-partition fused edge-MLP inside shard_map (r3 VERDICT item 4):
-ShardedVMHConv / ShardedMPPDEConv with ``partition_graph(tiled=True)`` must
-ride ``_sharded_propagate_fused`` (fused Pallas ϕ + reduce per partition,
-interpret mode on the 8-device CPU mesh) and match the single-device layers
-forward AND in gradients."""
+"""Per-partition fused ϕ-then-sum inside shard_map: ShardedVMHConv /
+ShardedMPPDEConv with a Dense-stack ϕ must ride
+``_sharded_propagate_fused`` (``edge_mlp_sum`` + the post-reduce epilogue
+per partition, on the 8-device CPU mesh) and match the single-device
+layers forward AND in gradients."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from neuralgraphpde import MLP, setup, rand_graph
 from neuralgraphpde.parallel import (
@@ -67,9 +66,7 @@ def test_sharded_vmh_fused_matches_single_device(mesh, monkeypatch):
     finally:
         set_spmm_mode("auto")
 
-    pg = partition_graph(g, NDEV, halo=True, tiled=True, tile_tn=8,
-                         tile_te=8)
-    assert pg.etile_senders is not None
+    pg = partition_graph(g, NDEV, halo=True)
     ld = ShardedVMHConv(phi, gamma, mesh=mesh, initialgraph=lambda: pg)
     std = ld.initialstates(jax.random.PRNGKey(5))
     hp = shard_node_features(pad_node_features(h, pg), pg, mesh)
@@ -78,12 +75,7 @@ def test_sharded_vmh_fused_matches_single_device(mesh, monkeypatch):
         y, _ = ld(hp, ps, std)
         return jnp.sum(y[:n] ** 2)
 
-    set_spmm_mode("pallas")
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            got, gds = jax.value_and_grad(loss_dist)(ps, hp)
-    finally:
-        set_spmm_mode("auto")
+    got, gds = jax.value_and_grad(loss_dist)(ps, hp)
 
     assert calls, "fused per-partition path did not engage"
     np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
@@ -122,8 +114,7 @@ def test_sharded_mppde_fused_matches_single_device(mesh, monkeypatch):
     finally:
         set_spmm_mode("auto")
 
-    pg = partition_graph(g, NDEV, halo=True, tiled=True, tile_tn=8,
-                         tile_te=8)
+    pg = partition_graph(g, NDEV, halo=True)
     ld = ShardedMPPDEConv(phi, psi, mesh=mesh, initialgraph=lambda: pg)
     std = ld.initialstates(jax.random.PRNGKey(2))
     hp = shard_node_features(pad_node_features(h, pg), pg, mesh)
@@ -132,12 +123,7 @@ def test_sharded_mppde_fused_matches_single_device(mesh, monkeypatch):
         y, _ = ld(hp, ps, std)
         return jnp.sum(y[:n] ** 2)
 
-    set_spmm_mode("pallas")
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            got, gds = jax.value_and_grad(loss_dist)(ps, hp)
-    finally:
-        set_spmm_mode("auto")
+    got, gds = jax.value_and_grad(loss_dist)(ps, hp)
 
     assert calls, "fused per-partition path did not engage"
     np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
@@ -145,104 +131,3 @@ def test_sharded_mppde_fused_matches_single_device(mesh, monkeypatch):
                     jax.tree_util.tree_leaves(gds)):
         np.testing.assert_allclose(np.asarray(b), np.asarray(a), atol=2e-4,
                                    rtol=2e-3)
-
-
-def test_sharded_gno_fused_matches_single_device(mesh, monkeypatch):
-    """ShardedGNOConv with edge tilings must ride the per-partition fused
-    GNO kernel (the E×in×out tensor never in HBM) and match the
-    single-device layer, values and gradients."""
-    from neuralgraphpde import GNOConv
-    from neuralgraphpde.kernels import gno_kernels
-    from neuralgraphpde.parallel import ShardedGNOConv
-
-    gno_calls = []
-    orig_gno = gno_kernels.fused_gno_aggregate
-
-    def gno_spy(*a, **k):
-        gno_calls.append(1)
-        return orig_gno(*a, **k)
-
-    monkeypatch.setattr(gno_kernels, "fused_gno_aggregate", gno_spy)
-
-    rng = np.random.default_rng(15)
-    n = 40
-    nd = {"a": rng.normal(size=(n, 2)).astype(np.float32),
-          "x": rng.normal(size=(n, 2)).astype(np.float32)}
-    g = rand_graph(n, 200, seed=15, ndata=nd)
-    in_chs, out_chs = 3, 4
-    h = rng.normal(size=(n, in_chs)).astype(np.float32)
-    phi = MLP((8, 16, in_chs * out_chs))  # ends in linear Dense -> fusable
-
-    l = GNOConv(in_chs, out_chs, phi, "tanh", initialgraph=g)
-    ps, st = setup(jax.random.PRNGKey(7), l)
-
-    def loss_single(ps, h):
-        y, _ = l(h, ps, st)
-        return jnp.sum(y ** 2)
-
-    set_spmm_mode("xla")
-    try:
-        want, gws = jax.value_and_grad(loss_single)(ps, jnp.asarray(h))
-    finally:
-        set_spmm_mode("auto")
-
-    pg = partition_graph(g, NDEV, halo=True, tiled=True, tile_tn=8,
-                         tile_te=8)
-    ld = ShardedGNOConv(in_chs, out_chs, phi, "tanh", mesh=mesh,
-                        initialgraph=lambda: pg)
-    std = ld.initialstates(jax.random.PRNGKey(7))
-    hp = shard_node_features(pad_node_features(h, pg), pg, mesh)
-
-    def loss_dist(ps, hp):
-        y, _ = ld(hp, ps, std)
-        return jnp.sum(y[:n] ** 2)
-
-    set_spmm_mode("pallas")
-    try:
-        with pltpu.force_tpu_interpret_mode():
-            got, gds = jax.value_and_grad(loss_dist)(ps, hp)
-    finally:
-        set_spmm_mode("auto")
-
-    assert gno_calls, "per-partition fused GNO kernel did not engage"
-    np.testing.assert_allclose(float(got), float(want), rtol=1e-4)
-    for a, b in zip(jax.tree_util.tree_leaves(gws),
-                    jax.tree_util.tree_leaves(gds)):
-        np.testing.assert_allclose(np.asarray(b), np.asarray(a), atol=2e-4,
-                                   rtol=2e-3)
-
-
-def test_fused_falls_back_without_tilings(mesh, monkeypatch):
-    """halo=True but tiled=False: fused_phi must be ignored (message path),
-    still correct."""
-    from neuralgraphpde import VMHConv
-    from neuralgraphpde.parallel import ShardedVMHConv
-
-    calls = _count_fused_calls(monkeypatch)
-    rng = np.random.default_rng(3)
-    n = 32
-    pos = rng.normal(size=(n, 2)).astype(np.float32)
-    g = rand_graph(n, 128, seed=3, ndata={"x": pos})
-    h = rng.normal(size=(n, 3)).astype(np.float32)
-    phi = MLP((3 + 3 + 2, 8, 4), activation="tanh")
-    gamma = MLP((3 + 4, 8, 3), activation="tanh")
-    l = VMHConv(phi, gamma, initialgraph=g)
-    ps, st = setup(jax.random.PRNGKey(1), l)
-    set_spmm_mode("xla")
-    try:
-        want, _ = l(jnp.asarray(h), ps, st)
-    finally:
-        set_spmm_mode("auto")
-
-    pg = partition_graph(g, NDEV, halo=True, tiled=False)
-    ld = ShardedVMHConv(phi, gamma, mesh=mesh, initialgraph=lambda: pg)
-    std = ld.initialstates(jax.random.PRNGKey(1))
-    hp = shard_node_features(pad_node_features(h, pg), pg, mesh)
-    set_spmm_mode("pallas")
-    try:
-        got, _ = ld(hp, ps, std)
-    finally:
-        set_spmm_mode("auto")
-    assert not calls
-    np.testing.assert_allclose(np.asarray(got)[:n], np.asarray(want),
-                               atol=1e-5)

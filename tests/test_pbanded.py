@@ -1,27 +1,15 @@
-"""Packed (row-list) block bands — the post-RCM unstructured-mesh path.
-
-The r5 reord profile (ROADMAP) showed the dense-diagonal BandedMatrix
-streams 811× zeros on RCM'd Delaunay meshes, and the value stream dominates
-the banded kernel 2:1 over x reads. PackedBanded stores each block-row's
-nonzero blocks only (absolute block-column indices ride the scalar-prefetch
-operand), cutting the dominant stream ~2.2× at TB=128 on the bench graph.
-Reference for the math being accelerated: the GCN aggregation hot path,
-src/layers.jl:227-233.
+"""Packed (row-list) block bands (``ops.bsr.PackedBanded``): the builder
+and its XLA product against the scatter reference. No dispatch path reads
+this format (gather + sorted segment sum was faster on the H200, PERF.md);
+it stays a library function until a cleanup removes it.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
-from jax.experimental.pallas import tpu as pltpu
 
 from neuralgraphpde.graph.builders import delaunay_graph
 from neuralgraphpde.graph.gnngraph import GnnGraph
 from neuralgraphpde.graph.reorder import rcm_order
-from neuralgraphpde.kernels.banded_kernels import (
-    _pbanded_rhs_fwd,
-    _pbanded_spmm_fwd,
-    pbanded_gcn_rhs,
-)
 from neuralgraphpde.ops.bsr import (
     build_packed_banded,
     packed_banded_spmm,
@@ -62,82 +50,8 @@ def test_builder_matches_scatter_reference():
                                atol=1e-4)
 
 
-def test_kernel_interpret_parity_and_vjp():
-    s, r, n, rng = _rcm_delaunay()
-    ew = rng.uniform(0.5, 1.5, size=len(s)).astype(np.float32)
-    pb = build_packed_banded(s, r, n, tb=128, edge_weight=ew)
-    pbt = transpose_packed_banded(s, r, n, tb=128, edge_weight=ew)
-    x = jnp.asarray(rng.normal(size=(n, 8)).astype(np.float32))
-    w = jnp.asarray((rng.normal(size=(8, 8)) / 3).astype(np.float32))
-    b = jnp.asarray(rng.normal(size=(1, 8)).astype(np.float32) * 0.1)
-
-    want = np.asarray(packed_banded_spmm(pb, x))
-    with pltpu.force_tpu_interpret_mode():
-        got = np.asarray(_pbanded_spmm_fwd(pb, x, interpret=True))
-    np.testing.assert_allclose(got, want, atol=1e-5)
-
-    hi = jax.lax.Precision.HIGHEST
-    want_r = np.asarray(jnp.tanh(
-        jnp.dot(packed_banded_spmm(pb, x), w, precision=hi) + b))
-    with pltpu.force_tpu_interpret_mode():
-        got_r = np.asarray(_pbanded_rhs_fwd(pb, x, w, b, act="tanh",
-                                            interpret=True))
-    np.testing.assert_allclose(got_r, want_r, atol=1e-5)
-
-    def loss_p(xx, ww, bb):
-        return jnp.sum(pbanded_gcn_rhs("tanh", xx, ww, bb, pb, pbt) ** 2)
-
-    def loss_ref(xx, ww, bb):
-        return jnp.sum(jnp.tanh(
-            jnp.dot(packed_banded_spmm(pb, xx), ww, precision=hi) + bb) ** 2)
-
-    with pltpu.force_tpu_interpret_mode():
-        gp = jax.grad(loss_p, argnums=(0, 1, 2))(x, w, b)
-    gr = jax.grad(loss_ref, argnums=(0, 1, 2))(x, w, b)
-    for a_, b_ in zip(jax.tree_util.tree_leaves(gp),
-                      jax.tree_util.tree_leaves(gr)):
-        np.testing.assert_allclose(np.asarray(a_), np.asarray(b_),
-                                   atol=1e-3, rtol=1e-3)
-
-
-def test_precompute_prefers_packed_on_sparse_bands():
-    """An RCM'd mesh whose dense diagonals would be mostly zeros must land
-    cache['pbanded'] (+norm via gcn_fused) and stay numerically exact
-    through the public spmm dispatch."""
-    from neuralgraphpde.graph.transforms import add_self_loops
-    from neuralgraphpde.ops.spmm import precompute, spmm, set_spmm_mode
-
-    rng = np.random.default_rng(9)
-    # large enough that the post-RCM bandwidth spans many TB=256
-    # diagonals AND rows leave most in-range blocks empty (bw ~ 6*sqrt(n),
-    # occupancy thins with n) — the regime packing wins on full traffic
-    pts = rng.uniform(size=(80000, 2)).astype(np.float32)
-    g0 = delaunay_graph(pts)
-    s = np.asarray(g0.senders).astype(np.int64)
-    r = np.asarray(g0.receivers).astype(np.int64)
-    order = rcm_order(s, r, g0.num_nodes)
-    inv = np.empty(g0.num_nodes, np.int64)
-    inv[order] = np.arange(g0.num_nodes)
-    g = GnnGraph.from_coo(inv[s].astype(np.int32), inv[r].astype(np.int32),
-                          num_nodes=g0.num_nodes)
-    gp = precompute(add_self_loops(g), dense=False, pallas=False, bsr=True,
-                    bsr_tb=256, gcn_fused=True)
-    assert "pbanded" in gp.cache, sorted(gp.cache)
-    assert "pbanded_rev" in gp.cache and "pbanded_norm" in gp.cache
-    x = jnp.asarray(rng.normal(size=(g.num_nodes, 8)).astype(np.float32))
-    set_spmm_mode("bsr")
-    try:
-        got = np.asarray(spmm(gp, x))
-    finally:
-        set_spmm_mode("auto")
-    want = np.asarray(spmm_xla(gp, x))
-    np.testing.assert_allclose(got, want, atol=1e-4)
-
-
 def test_rectangular_blocks_match():
-    """Tall 512x128 blocks (the production configuration: dense-kernel
-    step count with packed-column sparsity) must agree with the scatter
-    reference, forward and interpret-mode kernel."""
+    """Tall 512x128 blocks must agree with the scatter reference."""
     s, r, n, rng = _rcm_delaunay(n=3000, seed=4)
     ew = rng.uniform(0.5, 1.5, size=len(s)).astype(np.float32)
     pb = build_packed_banded(s, r, n, tb=128, tb_rows=512, edge_weight=ew)
@@ -148,48 +62,3 @@ def test_rectangular_blocks_match():
     want = np.asarray(spmm_xla(g, x, jnp.asarray(ew)))
     got = np.asarray(packed_banded_spmm(pb, x))
     np.testing.assert_allclose(got, want, atol=1e-4)
-    with pltpu.force_tpu_interpret_mode():
-        gk = np.asarray(_pbanded_spmm_fwd(pb, x, interpret=True))
-    np.testing.assert_allclose(gk, want, atol=1e-4)
-
-
-@pytest.mark.slow
-def test_partitioned_pbanded_engages_and_matches(monkeypatch):
-    """partition_graph on an RCM-ordered unstructured mesh must attach the
-    per-partition packed blocks (DIA/dense-band gates refuse there) and
-    sharded_spmm must match the single-device reference, fwd and grad."""
-    if jax.device_count() < 8:
-        pytest.skip("needs 8 virtual devices")
-    from neuralgraphpde.parallel import (make_mesh, pad_node_features,
-                                         partition_graph,
-                                         shard_node_features, sharded_spmm)
-
-    rng = np.random.default_rng(6)
-    # partitions must be big enough that their interior band leaves most
-    # block-columns empty (the packed gate mirrors the 0.6 density rule)
-    pts = rng.uniform(size=(48000, 2)).astype(np.float32)
-    g0 = delaunay_graph(pts)
-    s = np.asarray(g0.senders).astype(np.int64)
-    r = np.asarray(g0.receivers).astype(np.int64)
-    order = rcm_order(s, r, g0.num_nodes)
-    inv = np.empty(g0.num_nodes, np.int64)
-    inv[order] = np.arange(g0.num_nodes)
-    g = GnnGraph.from_coo(inv[s].astype(np.int32), inv[r].astype(np.int32),
-                          num_nodes=g0.num_nodes)
-    mesh = make_mesh(8)
-    pg = partition_graph(g, 8, halo=True)
-    assert pg.dia_values is None and pg.band_data is None
-    assert pg.pband_blocks is not None, "packed partition path must engage"
-    assert pg.pband_blocks.shape[0] == 8
-
-    x_np = rng.normal(size=(g.num_nodes, 16)).astype(np.float32)
-    x = shard_node_features(pad_node_features(x_np, pg), pg, mesh)
-    got = np.asarray(sharded_spmm(pg, x, mesh))[: g.num_nodes]
-    want = np.asarray(spmm_xla(g, jnp.asarray(x_np)))
-    np.testing.assert_allclose(got, want, atol=1e-4)
-
-    def loss(v):
-        return jnp.sum(jnp.tanh(sharded_spmm(pg, v, mesh)) ** 2)
-
-    gv = np.asarray(jax.grad(loss)(x))
-    assert np.all(np.isfinite(gv))
